@@ -91,7 +91,7 @@ def run_active_gibbs(
     pcfg: Optional[pmf.PMFConfig] = None,
     mesh=None,
     dtype=torch.float64,
-    device=None,
+    device="cuda",
     verbose: bool = False,
     checkpoint_path: Optional[str] = None,
     binary_acc: bool = False,
@@ -106,6 +106,9 @@ def run_active_gibbs(
 
     binary_acc: record binary misclassification instead of RMSE (the
     reference's DrugBank metric, stan-bpmf/bpmf.py:53-54).
+
+    device: ``cuda`` by default; without a card that raises
+    (``utils.platform.resolve_device``). The CPU runs only when named.
 
     Not ported yet (raise if given): ``mesh`` (candidate sharding),
     ``checkpoint_path`` and ``replay``.

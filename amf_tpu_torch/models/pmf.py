@@ -231,6 +231,76 @@ def fit(
     return dataclasses.replace(state, U=U, V=V), info
 
 
+def fit_lookahead_batch(
+    state: PMFState, problem: Problem,
+    delta_i: torch.Tensor, delta_j: torch.Tensor, delta_v: torch.Tensor,
+    cfg: PMFConfig, max_steps: int, use_pallas: bool = True,
+    block_rows: int = 256, bf16: bool = False, lane_block: int = 0,
+    fused: bool = False, poly_ls: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Refit the MAP factors for L hypothesised (i, j, v) ratings at once.
+
+    Mirrors ``amf_tpu/models/pmf.py::fit_lookahead_batch``: the adaptive
+    accept/reject ascent of ``fit`` (``adaptive_descent``) on every lane in
+    lockstep, each lane the shared base problem plus its own cell, with the
+    value and gradients from ``ops/pmf_kernels``:
+
+      * ``lane_block > 0``: ``pmf_batched_value_grad_t``; the carry is
+        (L, d, rows), bf16 when ``bf16``, transposed once at each end;
+      * else ``use_pallas``: ``pmf_batched_value_grad``;
+      * else the plain version, ``pmf_batched_value_grad_reference``.
+
+    On CUDA tensors the first two launch the CUDA kernel (the JAX name
+    ``use_pallas`` is kept). Returns (U (L, n, d), V (L, m, d), neg_ll (L,)),
+    float32. Assumes subtract_mean=False, as the JAX function does.
+    """
+    from amf_tpu_torch.ops import pmf_kernels as pk
+
+    if poly_ls:
+        raise NotImplementedError(
+            "fit_lookahead_batch(poly_ls=True) needs the line-coefficient "
+            "kernel, not ported yet (ROADMAP.md, port queue B: B3)")
+    if fused:
+        raise NotImplementedError(
+            "fit_lookahead_batch(fused=True) needs the whole-line-search "
+            "kernel, not ported yet (ROADMAP.md, port queue B: B5)")
+    L = delta_i.shape[0]
+    n, m = problem.shape
+    sigmas = torch.stack(
+        [state.sigma_sq, state.sigma_u_sq, state.sigma_v_sq]).to(torch.float32)
+    args = (problem.R_obs, problem.rated, delta_i, delta_j, delta_v, sigmas)
+    if lane_block:
+        fn, kw = pk.pmf_batched_value_grad_t, dict(
+            block_rows=block_rows, lanes_per_block=lane_block, bf16=bf16)
+    elif use_pallas:
+        fn, kw = pk.pmf_batched_value_grad, dict(block_rows=block_rows,
+                                                 bf16=bf16)
+    else:
+        fn, kw = pk.pmf_batched_value_grad_reference, {}
+
+    def value_and_grad_fn(uv):
+        f, gu, gv = fn(*uv, *args, **kw)
+        return f, (gu, gv)
+
+    def step_fn(uv, g, lr):
+        return tuple((x + _bcast(lr, x) * gx).to(x.dtype)
+                     for x, gx in zip(uv, g))
+
+    U0 = state.U.to(torch.float32).expand(L, n, cfg.latent_d)
+    V0 = state.V.to(torch.float32).expand(L, m, cfg.latent_d)
+    if lane_block:
+        U0, V0 = U0.mT, V0.mT
+        if bf16:
+            U0, V0 = U0.to(torch.bfloat16), V0.to(torch.bfloat16)
+    (U, V), info = adaptive_descent(
+        (U0.contiguous(), V0.contiguous()), value_and_grad_fn, step_fn,
+        lr0=cfg.learning_rate, stop_thresh=cfg.stop_thresh,
+        min_lr=cfg.min_learning_rate, max_steps=max_steps)
+    if lane_block:
+        U, V = U.mT.to(torch.float32), V.mT.to(torch.float32)
+    return U, V, info.final_value
+
+
 def parse_fit_type(string: str) -> tuple:
     """Parse the reference's fit-type mini-DSL, e.g. 'mini-valid,100,50'
     (reference: pmf.py:338-350)."""

@@ -55,8 +55,8 @@ def main(argv=None):
     parser.add_argument("--test-set", default="all")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--float32", action="store_true")
-    parser.add_argument("--device", default=None,
-                        help="cpu or cuda (default: cuda when available)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu; there is no fallback")
     parser.add_argument("--verbose", action="store_true", default=True)
     parser.add_argument("--no-verbose", action="store_false", dest="verbose")
     parser.add_argument("--load-data", required=True, metavar="FILE")

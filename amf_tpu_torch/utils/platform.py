@@ -3,8 +3,9 @@
 Every entry point takes an explicit ``device`` and resolves it here. The
 policy:
 
-  * ``None`` means the first CUDA card when one is present, else the CPU;
-    naming ``cuda`` on a host without one raises instead of falling back;
+  * ``None`` means ``cuda``, the current CUDA card; on a host without one
+    it raises, as naming ``cuda`` does. The CPU runs only when it is named
+    (``device="cpu"``, ``--device cpu``), as the tests do;
   * TF32 is off for matmuls and cuDNN on every path, so float32 products
     run in full float32 on the card as they do on the CPU;
   * float64 runs where it is asked for, the card included (the H100 has
@@ -25,9 +26,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     if dev.type not in ("cpu", "cuda"):

@@ -19,6 +19,7 @@ SLICE = [
     "amf_tpu_torch.ops.quadrature", "amf_tpu_torch.models.pmf",
     "amf_tpu_torch.models.bpmf_gibbs", "amf_tpu_torch.active.driver",
     "amf_tpu_torch.active.gibbs_loop", "amf_tpu_torch.run.bayes_pmf",
+    "amf_tpu_torch.ops.pmf_kernels", "amf_tpu_torch.run.add_rmse_boosts",
 ]
 
 
@@ -59,6 +60,24 @@ def test_platform_policy_turns_tf32_off():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device("cuda")
+
+
+def test_default_device_is_cuda_with_no_cpu_fallback():
+    """Entry points run on the card unless the CPU is named."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default would run on it")
+    from amf_tpu_torch.active.gibbs_loop import run_active_gibbs
+    from amf_tpu_torch.run import add_rmse_boosts, bayes_pmf
+    from amf_tpu_torch.utils.platform import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_active_gibbs(None, None, ["random"])
+    for cli in (add_rmse_boosts, bayes_pmf):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--load-data", "never-read.npz"])
 
 
 def test_lane_seeds_are_stable_and_tile_invariant():
