@@ -231,6 +231,61 @@ def fit(
     return dataclasses.replace(state, U=U, V=V), info
 
 
+POLY_RUNGS = 64  # rungs of the poly loop: lr down to min_lr from any lr
+
+
+def _poly_epochs(value_grad, coeffs, U, V, cfg: PMFConfig, max_steps: int):
+    """The poly-LS epoch loop of ``amf_tpu/models/pmf.py`` (its
+    ``fit_lookahead_batch(poly_ls=True)``), lanes in lockstep.
+
+    Each epoch takes the improvement quartic of every lane along its ascent
+    direction (``coeffs``), walks the halving ladder lr, lr/2, ... in closed
+    form, moves each lane that hits a rung to it, and refreshes value and
+    gradients at the (maybe unchanged) point (``value_grad``). A lane is
+    done when its step improves by < stop_thresh, or when no rung hits
+    (its budget of ``max_steps`` proposals spent, or lr below min_lr). The
+    carry keeps U's dtype. Returns (U, V, f, proposals) with f from the
+    last refresh and the rungs each lane examined (L,) int32; the host
+    reads ``done`` once an epoch.
+    """
+    f, gu, gv = value_grad(U, V)
+    L, dev = f.shape[0], f.device
+    lr = torch.full((L,), cfg.learning_rate, dtype=torch.float32, device=dev)
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
+    n_it = torch.zeros(L, dtype=torch.int32, device=dev)
+    rung = torch.arange(POLY_RUNGS, dtype=torch.int32, device=dev)
+    half_pow = 0.5 ** rung.to(torch.float32)
+    first = torch.ones((L, 1), dtype=torch.bool, device=dev)
+    while bool((~done).any()):
+        c1, c2, c3, c4 = (c[:, None] for c in coeffs(U, V, gu, gv))
+        alpha = lr[:, None] * half_pow  # (L, rungs)
+        dlt = alpha * (c1 + alpha * (c2 + alpha * (c3 + alpha * c4)))
+        accept = torch.isfinite(dlt) & (dlt > 0)
+        stop_rej = ~accept & (alpha * 0.5 < cfg.min_learning_rate)
+        prev_ok = torch.cat([first, torch.cumprod(
+            (~accept & ~stop_rej).to(torch.int32), dim=1)[:, :-1].bool()],
+            dim=1)
+        examined = (prev_ok & ((n_it[:, None] + rung) < max_steps)
+                    & ~done[:, None])
+        hit = examined & accept
+        any_hit = hit.any(dim=1)
+        t_star = torch.argmax(hit.to(torch.int32), dim=1, keepdim=True)
+        a_star = alpha.gather(1, t_star)[:, 0]
+        d_star = dlt.gather(1, t_star)[:, 0]
+        consumed = torch.where(any_hit, t_star[:, 0].to(torch.int32) + 1,
+                               examined.sum(dim=1).to(torch.int32))
+        step = any_hit[:, None, None]
+        U = torch.where(step, (U + a_star[:, None, None] * gu).to(U.dtype), U)
+        V = torch.where(step, (V + a_star[:, None, None] * gv).to(V.dtype), V)
+        # on lanes that accepted nothing this recomputes the same point
+        f, gu, gv = value_grad(U, V)
+        lr = torch.where(any_hit, a_star * 1.25,
+                         lr * 0.5 ** consumed.to(torch.float32))
+        done = done | torch.where(any_hit, d_star < cfg.stop_thresh, True)
+        n_it = n_it + consumed
+    return U, V, f, n_it
+
+
 def fit_lookahead_batch(
     state: PMFState, problem: Problem,
     delta_i: torch.Tensor, delta_j: torch.Tensor, delta_v: torch.Tensor,
@@ -241,34 +296,45 @@ def fit_lookahead_batch(
     """Refit the MAP factors for L hypothesised (i, j, v) ratings at once.
 
     Mirrors ``amf_tpu/models/pmf.py::fit_lookahead_batch``: the adaptive
-    accept/reject ascent of ``fit`` (``adaptive_descent``) on every lane in
-    lockstep, each lane the shared base problem plus its own cell, with the
-    value and gradients from ``ops/pmf_kernels``:
+    accept/reject ascent of ``fit`` on every lane in lockstep, each lane
+    the shared base problem plus its own cell, with the kernels of
+    ``ops/pmf_kernels``:
 
-      * ``lane_block > 0``: ``pmf_batched_value_grad_t``; the carry is
-        (L, d, rows), bf16 when ``bf16``, transposed once at each end;
+      * ``fused`` and ``lane_block > 0``: the whole line search in one
+        launch, ``pmf_lookahead_fused_t``;
+      * ``lane_block > 0``: value and gradients from
+        ``pmf_batched_value_grad_t``; the carry is (L, d, rows), bf16 when
+        ``bf16``, transposed once at each end. The proposal loop runs on
+        ``adaptive_descent``; with ``poly_ls`` the epoch loop decides every
+        rejected lr by the exact quartic (``pmf_line_coeffs_t``);
       * else ``use_pallas``: ``pmf_batched_value_grad``;
       * else the plain version, ``pmf_batched_value_grad_reference``.
 
-    On CUDA tensors the first two launch the CUDA kernel (the JAX name
-    ``use_pallas`` is kept). Returns (U (L, n, d), V (L, m, d), neg_ll (L,)),
-    float32. Assumes subtract_mean=False, as the JAX function does.
+    ``poly_ls`` needs ``lane_block > 0`` (ValueError); ``fused`` without it
+    takes the proposal loop, as in the JAX package. On CUDA tensors the
+    kernel paths launch the CUDA kernels (the JAX name ``use_pallas`` is
+    kept). Returns (U (L, n, d), V (L, m, d), neg_ll (L,)), float32.
+    Assumes subtract_mean=False, as the JAX function does.
     """
     from amf_tpu_torch.ops import pmf_kernels as pk
 
-    if poly_ls:
-        raise NotImplementedError(
-            "fit_lookahead_batch(poly_ls=True) needs the line-coefficient "
-            "kernel, not ported yet (ROADMAP.md, port queue B: B3)")
-    if fused:
-        raise NotImplementedError(
-            "fit_lookahead_batch(fused=True) needs the whole-line-search "
-            "kernel, not ported yet (ROADMAP.md, port queue B: B5)")
     L = delta_i.shape[0]
     n, m = problem.shape
+    f32 = torch.float32
     sigmas = torch.stack(
-        [state.sigma_sq, state.sigma_u_sq, state.sigma_v_sq]).to(torch.float32)
+        [state.sigma_sq, state.sigma_u_sq, state.sigma_v_sq]).to(f32)
     args = (problem.R_obs, problem.rated, delta_i, delta_j, delta_v, sigmas)
+    if fused and lane_block:
+        ls_params = torch.tensor(
+            [cfg.learning_rate, cfg.stop_thresh, cfg.min_learning_rate],
+            dtype=f32, device=sigmas.device)
+        f, Ut, Vt = pk.pmf_lookahead_fused_t(
+            state.U.mT.to(f32), state.V.mT.to(f32), *args, ls_params,
+            max_steps=max_steps, block_rows=block_rows,
+            lanes_per_block=lane_block, bf16=bf16)
+        return Ut.mT, Vt.mT, f
+    if poly_ls and not lane_block:
+        raise ValueError("poly_ls requires lane_block > 0")
     if lane_block:
         fn, kw = pk.pmf_batched_value_grad_t, dict(
             block_rows=block_rows, lanes_per_block=lane_block, bf16=bf16)
@@ -278,27 +344,35 @@ def fit_lookahead_batch(
     else:
         fn, kw = pk.pmf_batched_value_grad_reference, {}
 
-    def value_and_grad_fn(uv):
-        f, gu, gv = fn(*uv, *args, **kw)
-        return f, (gu, gv)
-
-    def step_fn(uv, g, lr):
-        return tuple((x + _bcast(lr, x) * gx).to(x.dtype)
-                     for x, gx in zip(uv, g))
-
-    U0 = state.U.to(torch.float32).expand(L, n, cfg.latent_d)
-    V0 = state.V.to(torch.float32).expand(L, m, cfg.latent_d)
+    U0 = state.U.to(f32).expand(L, n, cfg.latent_d)
+    V0 = state.V.to(f32).expand(L, m, cfg.latent_d)
     if lane_block:
         U0, V0 = U0.mT, V0.mT
         if bf16:
             U0, V0 = U0.to(torch.bfloat16), V0.to(torch.bfloat16)
-    (U, V), info = adaptive_descent(
-        (U0.contiguous(), V0.contiguous()), value_and_grad_fn, step_fn,
-        lr0=cfg.learning_rate, stop_thresh=cfg.stop_thresh,
-        min_lr=cfg.min_learning_rate, max_steps=max_steps)
+    U0, V0 = U0.contiguous(), V0.contiguous()
+    if poly_ls:
+        U, V, f, _ = _poly_epochs(
+            lambda U, V: fn(U, V, *args, **kw),
+            lambda *uvg: pk.pmf_line_coeffs_t(*uvg, *args, **kw),
+            U0, V0, cfg, max_steps)
+    else:
+        def value_and_grad_fn(uv):
+            f, gu, gv = fn(*uv, *args, **kw)
+            return f, (gu, gv)
+
+        def step_fn(uv, g, lr):
+            return tuple((x + _bcast(lr, x) * gx).to(x.dtype)
+                         for x, gx in zip(uv, g))
+
+        (U, V), info = adaptive_descent(
+            (U0, V0), value_and_grad_fn, step_fn,
+            lr0=cfg.learning_rate, stop_thresh=cfg.stop_thresh,
+            min_lr=cfg.min_learning_rate, max_steps=max_steps)
+        f = info.final_value
     if lane_block:
-        U, V = U.mT.to(torch.float32), V.mT.to(torch.float32)
-    return U, V, info.final_value
+        U, V = U.mT.to(f32), V.mT.to(f32)
+    return U, V, f
 
 
 def parse_fit_type(string: str) -> tuple:

@@ -1,27 +1,37 @@
-"""Per-lane PMF value and ascent gradients: CUDA kernel and plain version.
+"""PMF lookahead-refit kernels: CUDA kernels and their plain versions.
 
-The batched lookahead refit (``models/pmf.fit_lookahead_batch``) evaluates,
+The batched lookahead refit (``models/pmf.fit_lookahead_batch``) refits,
 for each of L lanes (the shared base problem plus the lane's own cell
-(i, j) rated with value v), the negative log posterior and its ascent
-gradients::
+(i, j) rated with value v), the MAP factors of PMF by the adaptive
+accept/reject ascent. Its kernels mirror ``amf_tpu/ops/pallas_kernels.py``:
 
-    E      = mask * (R - U V^T)
-    neg_ll = sum E^2 / 2s + sum U^2 / 2su + sum V^2 / 2sv
-    Gu     = E V / s - U / su,        Gv = E^T U / s - V / sv
+  * value and ascent gradients (``pmf_batched_value_grad`` with factors
+    (L, rows, d), ``pmf_batched_value_grad_t`` with (L, d, rows)), one CUDA
+    source for both layouts, ``csrc/pmf_value_grad.cu``::
 
-Mirrors ``amf_tpu/ops/pallas_kernels.py``, whose two Pallas kernels for it
-differ only in layout: ``pmf_batched_value_grad`` takes factors as
-(L, rows, d), ``pmf_batched_value_grad_t`` as (L, d, rows). Here one CUDA
-source (``amf_tpu_torch/csrc/pmf_value_grad.cu``) serves both: it is given
-the factors' strides. The kernel returns the data term ``sum E^2`` and the
-gradients; the wrappers add the prior terms in plain PyTorch, as the JAX
-wrappers do outside their kernels.
+        E      = mask * (R - U V^T)
+        neg_ll = sum E^2 / 2s + sum U^2 / 2su + sum V^2 / 2sv
+        Gu     = E V / s - U / su,        Gv = E^T U / s - V / sv
+
+    The kernel returns the data term ``sum E^2`` and the gradients; the
+    wrappers add the prior terms, as the JAX wrappers do;
+  * the improvement quartic of the poly line search along the ray
+    (U + a Gu, V + a Gv) (``pmf_line_coeffs_t``, ``csrc/pmf_line_coeffs.cu``):
+    the kernel gives the masked reductions a2 = <E, P2>, a11 = <mP1, P1>,
+    a12 = <mP1, P2>, a22 = <mP2, P2> with P1 = Gu V^T + U Gv^T and
+    P2 = Gu Gv^T; the wrapper assembles c1..c4 from them and from the
+    gradients' norms;
+  * the whole line search of every lane in one launch
+    (``pmf_lookahead_fused_t``, ``csrc/pmf_lookahead_fused.cu``).
 
 Precision: ``bf16`` streams R, the mask and the factors in bfloat16 and
-accumulates every sum in float32. The (L, d, rows) layout then also rounds
-the scaled residual E / s to bf16 before the gradient contractions and
-returns bf16 gradients, as its TPU kernel does; the (L, rows, d) layout
-returns float32 gradients. The prior terms come from the caller's factors.
+accumulates every sum in float32. The (L, d, rows) value+gradient kernel
+then also rounds the scaled residual E / s to bf16 before the gradient
+contractions and returns bf16 gradients, as its TPU kernel does; the
+(L, rows, d) layout returns float32 gradients. The fused line search keeps
+each lane's factors and gradients in the streaming dtype, forms proposals
+in float32 and rounds them to bf16 for the products only. The prior terms
+come from the caller's factors, or from the float32 proposal.
 
 Dispatch: a CPU tensor goes to the plain version. A CUDA tensor goes to the
 kernel, or raises; ``kernel=False`` sends it to the plain version on
@@ -38,23 +48,71 @@ from typing import Tuple
 
 import torch
 
+from amf_tpu_torch.ops.linesearch import CHECK_EVERY
+
 MAX_D = 32
-_SOURCE = "pmf_value_grad"
 _F32 = torch.float32
 _BF16 = torch.bfloat16
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of each source's C function ``amf_<source>``
+_ARGTYPES = {
+    "pmf_value_grad": [_I] * 3 + [_P] * 12 + [_LL] * 3 + [_I] + [_LL] * 6
+    + [_P],
+    "pmf_line_coeffs": [_I] + [_P] * 11 + [_LL] * 3 + [_I] + [_P],
+    "pmf_lookahead_fused": [_I] + [_P] * 23 + [_LL] * 3 + [_I] * 2 + [_P],
+}
 
 
 @functools.cache
-def _entry_point():
-    """The kernel library's C function (built at first use)."""
+def _entry_point(source: str = "pmf_value_grad"):
+    """The C function of kernel library ``csrc/<source>.cu`` (built at
+    first use)."""
     from amf_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.load(_SOURCE).amf_pmf_value_grad
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 12
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_int]
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+    fn = getattr(cuda_build.load(source), "amf_" + source)
+    fn.argtypes = _ARGTYPES[source]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _lane_residual(U, V, R, rated, delta_i, delta_j, delta_v):
+    """E = mask * (R - U V^T) of every lane, (L, n, m) in U's dtype, with
+    the lane's own cell rated at its value. R and ``rated`` are shared by
+    all lanes and never copied per lane."""
+    dt = U.dtype
+    lane = torch.arange(U.shape[0], device=U.device)
+    di, dj = delta_i.long(), delta_j.long()
+    cell = delta_v.to(dt) - (U[lane, di] * V[lane, dj]).sum(-1)
+    E = U @ V.mT
+    E.neg_().add_(R.to(dt)).masked_fill_(~rated.bool(), 0.0)
+    E[lane, di, dj] = cell
+    return E
+
+
+def _lane_masked(P, rated, delta_i, delta_j):
+    """``P`` (L, n, m) zeroed off each lane's rated cells, in place."""
+    lane = torch.arange(P.shape[0], device=P.device)
+    di, dj = delta_i.long(), delta_j.long()
+    cell = P[lane, di, dj]
+    P.masked_fill_(~rated.bool(), 0.0)
+    P[lane, di, dj] = cell
+    return P
+
+
+def _use_kernel(x: torch.Tensor, kernel: bool, name: str) -> bool:
+    """The dispatch rule of the module docstring."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return kernel
+    raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+
+
+def _check_cuda(name, *tensors):
+    dev = tensors[0].device
+    if not (dev.type == "cuda" and all(x.device == dev for x in tensors)):
+        raise ValueError(f"{name}: want every tensor on one CUDA device")
+    return dev
 
 
 def pmf_value_grad_plain(
@@ -65,19 +123,13 @@ def pmf_value_grad_plain(
     """Plain version of the kernel: (sum E^2 (L,), Gu (L, n, d), Gv (L, m, d)).
 
     U (L, n, d) and V (L, m, d) in any float dtype, which sets the working
-    dtype; R and ``rated`` (n, m) are shared by all lanes and never copied
-    per lane: each lane's cell is patched into its own residual.
+    dtype; R and ``rated`` (n, m) are shared by all lanes.
     ``round_resid`` rounds E / s to bf16 before the contractions.
     """
     pmf_value_grad_plain.calls += 1
     dt = U.dtype
     s, s_u, s_v = (x.to(dt) for x in sigmas)
-    lane = torch.arange(U.shape[0], device=U.device)
-    di, dj = delta_i.long(), delta_j.long()
-    cell = delta_v.to(dt) - (U[lane, di] * V[lane, dj]).sum(-1)
-    E = U @ V.mT
-    E.neg_().add_(R.to(dt)).masked_fill_(~rated.bool(), 0.0)
-    E[lane, di, dj] = cell
+    E = _lane_residual(U, V, R, rated, delta_i, delta_j, delta_v)
     sqerr = (E * E).sum(dim=(1, 2))
     E.mul_(1.0 / s)
     if round_resid:
@@ -141,10 +193,8 @@ def pmf_value_grad_cuda(
         raise ValueError(f"shape mismatch: U {tuple(U.shape)}, V "
                          f"{tuple(V.shape)}, R {tuple(R.shape)}, rated "
                          f"{tuple(rated.shape)} (transposed={transposed})")
-    dev = U.device
-    if not (U.is_cuda and all(x.device == dev for x in (
-            V, R, rated, delta_i, delta_j, delta_v, sigmas))):
-        raise ValueError("want every tensor on one CUDA device")
+    dev = _check_cuda("pmf_value_grad", U, V, R, rated, delta_i, delta_j,
+                      delta_v, sigmas)
     if U.dtype not in (_F32, _BF16) or not (V.dtype == R.dtype == U.dtype):
         raise TypeError(f"want U, V, R in one dtype, float32 or bfloat16; "
                         f"got {U.dtype}, {V.dtype}, {R.dtype}")
@@ -194,7 +244,12 @@ def _value_grad(U, V, R, rated, delta_i, delta_j, delta_v, sigmas, *,
     """The shared body of both wrappers (see the module docstring)."""
     io = _BF16 if bf16 else _F32
     Ui, Vi, Ri = U.to(io), V.to(io), R.to(io)
-    if U.device.type == "cpu" or (U.device.type == "cuda" and not kernel):
+    if _use_kernel(U, kernel, "pmf_value_grad"):
+        sqerr, gu, gv = pmf_value_grad_cuda(
+            Ui, Vi, Ri, rated, delta_i, delta_j, delta_v, sigmas,
+            transposed=transposed, round_resid=round_resid,
+            out_dtype=out_dtype)
+    else:
         def rows(x):  # the plain version works in (L, rows, d)
             return x.mT if transposed else x
 
@@ -203,13 +258,6 @@ def _value_grad(U, V, R, rated, delta_i, delta_j, delta_v, sigmas, *,
             delta_i, delta_j, delta_v, sigmas, round_resid=round_resid)
         gu = rows(gu).to(out_dtype).contiguous()
         gv = rows(gv).to(out_dtype).contiguous()
-    elif U.device.type == "cuda":
-        sqerr, gu, gv = pmf_value_grad_cuda(
-            Ui, Vi, Ri, rated, delta_i, delta_j, delta_v, sigmas,
-            transposed=transposed, round_resid=round_resid,
-            out_dtype=out_dtype)
-    else:
-        raise ValueError(f"pmf_value_grad runs on cpu or cuda, not {U.device}")
     return _neg_ll(sqerr, U, V, sigmas), gu, gv
 
 
@@ -245,3 +293,301 @@ def pmf_batched_value_grad_t(
     return _value_grad(Ut, Vt, R, rated, delta_i, delta_j, delta_v, sigmas,
                        transposed=True, bf16=bf16, round_resid=bf16,
                        out_dtype=_BF16 if bf16 else _F32, kernel=kernel)
+
+
+# ---------------------------------------------------------------------------
+# B3: the improvement quartic of the poly line search
+
+
+def pmf_line_coeffs_plain(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
+                          delta_v) -> torch.Tensor:
+    """Plain version of the kernel: (L, 4) = [a2, a11, a12, a22] per lane.
+
+    Factors and directions (L, d, rows) in any float dtype, which sets the
+    working dtype; R and ``rated`` (n, m) are shared by all lanes.
+    """
+    pmf_line_coeffs_plain.calls += 1
+    U, V, Gu, Gv = (x.mT for x in (Ut, Vt, Gut, Gvt))
+    args = (rated, delta_i, delta_j)
+    E = _lane_residual(U, V, R, *args, delta_v)
+    mp2 = _lane_masked(Gu @ Gv.mT, *args)
+    a2 = (E * mp2).sum(dim=(1, 2))
+    del E
+    mp1 = Gu @ V.mT
+    mp1 += U @ Gv.mT
+    mp1 = _lane_masked(mp1, *args)
+    return torch.stack([a2, (mp1 * mp1).sum(dim=(1, 2)),
+                        (mp1 * mp2).sum(dim=(1, 2)),
+                        (mp2 * mp2).sum(dim=(1, 2))], dim=1)
+
+
+pmf_line_coeffs_plain.calls = 0
+
+
+def pmf_line_coeffs_cuda(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
+                         delta_v) -> torch.Tensor:
+    """Launch the CUDA kernel -> (L, 4) float32 [a2, a11, a12, a22].
+
+    Ut, Gut (L, d, n), Vt, Gvt (L, d, m) and R (n, m) on one CUDA device in
+    one dtype, float32 or bfloat16; 1 <= d <= 32. Every product and sum is
+    float32. The launch goes on the current stream and does not
+    synchronise. ``launches`` counts launches by input dtype.
+    """
+    L, d, n = Ut.shape
+    m = Vt.shape[2]
+    if (tuple(Gut.shape) != (L, d, n) or tuple(Vt.shape) != (L, d, m)
+            or tuple(Gvt.shape) != (L, d, m) or tuple(R.shape) != (n, m)
+            or tuple(rated.shape) != (n, m)):
+        raise ValueError(f"shape mismatch: Ut {tuple(Ut.shape)}, Vt "
+                         f"{tuple(Vt.shape)}, Gut {tuple(Gut.shape)}, Gvt "
+                         f"{tuple(Gvt.shape)}, R {tuple(R.shape)}, rated "
+                         f"{tuple(rated.shape)}")
+    dev = _check_cuda("pmf_line_coeffs", Ut, Vt, Gut, Gvt, R, rated,
+                      delta_i, delta_j, delta_v)
+    if Ut.dtype not in (_F32, _BF16) or any(
+            x.dtype != Ut.dtype for x in (Vt, Gut, Gvt, R)):
+        raise TypeError("want Ut, Vt, Gut, Gvt, R in one dtype, float32 or "
+                        "bfloat16")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"pmf_line_coeffs kernel takes 1 <= d <= {MAX_D}; "
+                         f"got d={d}")
+    if not (1 <= L <= 65535 and n >= 1 and m >= 1):
+        raise ValueError(f"pmf_line_coeffs kernel takes 1 <= L <= 65535 "
+                         f"lanes and n, m >= 1; got L={L}, n={n}, m={m}")
+    Ut, Vt, Gut, Gvt, R = (x.contiguous() for x in (Ut, Vt, Gut, Gvt, R))
+    mask = rated.to(torch.bool).contiguous().view(torch.uint8)
+    di = delta_i.to(torch.int32).contiguous()
+    dj = delta_j.to(torch.int32).contiguous()
+    dv = delta_v.to(_F32).contiguous()
+    row_part = torch.empty((L, n, 4), dtype=_F32, device=dev)
+    acc = torch.empty((L, 4), dtype=_F32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _entry_point("pmf_line_coeffs")(
+        int(Ut.dtype == _BF16), Ut.data_ptr(), Vt.data_ptr(), Gut.data_ptr(),
+        Gvt.data_ptr(), R.data_ptr(), mask.data_ptr(), di.data_ptr(),
+        dj.data_ptr(), dv.data_ptr(), row_part.data_ptr(), acc.data_ptr(),
+        L, n, m, d, stream)
+    if err:
+        raise RuntimeError(f"pmf_line_coeffs kernel launch failed: CUDA "
+                           f"error {err} (L={L}, n={n}, m={m}, d={d}, "
+                           f"{Ut.dtype})")
+    pmf_line_coeffs_cuda.launches[str(Ut.dtype)] += 1
+    return acc
+
+
+pmf_line_coeffs_cuda.launches = collections.Counter()
+
+
+def pmf_line_coeffs_t(
+    Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j, delta_v, sigmas,
+    block_rows: int = 256, lanes_per_block: int = 8, bf16: bool = True,
+    kernel: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Improvement-quartic coefficients (c1, c2, c3, c4), each (L,), of
+
+        delta(a) = f(U, V) - f(U + a Gu, V + a Gv)
+                 = c1 a + c2 a^2 + c3 a^3 + c4 a^4
+
+    per lane; factors and ascent directions (L, d, rows). The port of
+    ``amf_tpu/ops/pallas_kernels.py::pmf_line_coeffs_t``: the masked
+    reductions come from the kernel (with ``bf16`` from bf16-rounded R and
+    factors, float32 sums); c1 = |Gu|^2 + |Gv|^2 and the prior term b2 come
+    from the float32 cast of the given directions, not from the cancelling
+    difference a1/s - <U, Gu>/su - <V, Gv>/sv.
+    """
+    del block_rows, lanes_per_block  # the TPU's tiling (module docstring)
+    io = _BF16 if bf16 else _F32
+    ins = [x.to(io) for x in (Ut, Vt, Gut, Gvt, R)]
+    args = (rated, delta_i, delta_j, delta_v)
+    if _use_kernel(Ut, kernel, "pmf_line_coeffs"):
+        acc = pmf_line_coeffs_cuda(*ins, *args)
+    else:
+        acc = pmf_line_coeffs_plain(*(x.to(_F32) for x in ins), *args)
+    a2, a11, a12, a22 = acc.unbind(1)
+    gu, gv = Gut.to(_F32), Gvt.to(_F32)
+    s, s_u, s_v = sigmas.to(_F32)
+    uu, vv = (gu * gu).sum(dim=(1, 2)), (gv * gv).sum(dim=(1, 2))
+    b2 = 0.5 * (uu / s_u + vv / s_v)
+    return (uu + vv, -(a11 - 2.0 * a2) / (2.0 * s) - b2, -a12 / s,
+            -a22 / (2.0 * s))
+
+
+# ---------------------------------------------------------------------------
+# B5: the whole line search of every lane in one launch
+
+
+def pmf_lookahead_fused_plain(
+    Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
+    max_steps: int, bf16: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel -> (f (L,) float32, Ut (L, d, n),
+    Vt (L, d, m) in the streaming dtype, evaluations (L,) int32).
+
+    Every lane starts at (Ut0, Vt0) (d, rows), rounded to the streaming
+    dtype, and runs the adaptive accept/reject ascent with
+    ``ls_params = [lr0, stop_thresh, min_lr]``: an init evaluation, then
+    ``max_steps`` steps, which a converged lane skips. It reproduces the
+    kernel's roundings: the lane's factors and gradients are stored in the
+    streaming dtype; a proposal ``U + lr Gu`` is formed in float32 from
+    that storage; with ``bf16`` the products take the proposal rounded to
+    bf16 and the scaled residual is rounded to bf16 before the two
+    contractions, while the squared error, the prior terms of the value and
+    of the gradients take the float32 values.
+    """
+    pmf_lookahead_fused_plain.calls += 1
+    io = _BF16 if bf16 else _F32
+    L = delta_i.shape[0]
+    d, n = Ut0.shape
+    m = Vt0.shape[1]
+    s, s_u, s_v = sigmas.to(_F32)
+    lr0, stop, min_lr = ls_params.to(_F32)
+    inv_sig = 1.0 / s
+    R32 = R.to(io).to(_F32)
+    args = (rated, delta_i, delta_j, delta_v)
+
+    def evaluate(up, vp):
+        """(f, Gu, Gv) at the float32 proposal (L, n, d), (L, m, d)."""
+        pu, pv = up.to(io).to(_F32), vp.to(io).to(_F32)
+        E = _lane_residual(pu, pv, R32, *args)
+        sqerr = (E * E).sum(dim=(1, 2))
+        E.mul_(inv_sig)
+        E = E.to(io).to(_F32)
+        f = (sqerr / (2 * s) + (up * up).sum(dim=(1, 2)) / (2 * s_u)
+             + (vp * vp).sum(dim=(1, 2)) / (2 * s_v))
+        return f, E @ pv - up / s_u, E.mT @ pu - vp / s_v
+
+    up = Ut0.to(io).to(_F32).mT.expand(L, n, d)
+    vp = Vt0.to(io).to(_F32).mT.expand(L, m, d)
+    f, gup, gvp = evaluate(up, vp)
+    state = [x.to(io) for x in (up, vp, gup, gvp)]
+    lr = lr0.expand(L).clone()
+    done = torch.zeros(L, dtype=torch.bool, device=f.device)
+    evals = torch.ones(L, dtype=torch.int32, device=f.device)
+    for step in range(max_steps):
+        if step % CHECK_EVERY == 0 and bool(done.all()):
+            break
+        u, v, gu, gv = state
+        up = u.to(_F32) + lr[:, None, None] * gu.to(_F32)
+        vp = v.to(_F32) + lr[:, None, None] * gv.to(_F32)
+        fp, gup, gvp = evaluate(up, vp)
+        active = ~done
+        accept = active & torch.isfinite(fp) & (fp < f)
+        conv = torch.where(accept, (f - fp) < stop, lr * 0.5 < min_lr)
+        sel = accept[:, None, None]
+        state = [torch.where(sel, new.to(io), old)
+                 for new, old in zip((up, vp, gup, gvp), state)]
+        f = torch.where(accept, fp, f)
+        lr = torch.where(active, torch.where(accept, lr * 1.25, lr * 0.5), lr)
+        done = done | (active & conv)
+        evals += active
+    return f, state[0].mT, state[1].mT, evals
+
+
+pmf_lookahead_fused_plain.calls = 0
+
+
+def _csr(rated, R, transpose: bool):
+    """(pointers (rows + 1,), column indices, values) of the rated cells of
+    ``rated`` (or of its transpose), int32 indices, in row order."""
+    mask = rated.to(torch.bool)
+    if transpose:
+        mask, R = mask.mT, R.mT
+    rows, cols = torch.nonzero(mask, as_tuple=True)
+    ptr = torch.zeros(mask.shape[0] + 1, dtype=torch.int32, device=R.device)
+    ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=mask.shape[0]), 0)
+    return ptr, cols.to(torch.int32).contiguous(), R[rows, cols].contiguous()
+
+
+def pmf_lookahead_fused_cuda(
+    Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
+    max_steps: int, bf16: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel -> (f (L,) float32, Ut (L, d, n), Vt (L, d, m)
+    in the streaming dtype, evaluations (L,) int32); the contract of
+    ``pmf_lookahead_fused_plain``.
+
+    Ut0 (d, n), Vt0 (d, m), R and ``rated`` (n, m) on one CUDA device;
+    1 <= d <= 32; every lane's cell inside the problem. The wrapper
+    indexes the rated cells of the shared mask once (by row and by column,
+    with torch ops: data preparation); one thread block runs one lane's
+    whole line search. The launch goes on the current stream and does not
+    synchronise, but checking the cells and indexing the mask do.
+    ``launches`` counts launches by streaming dtype.
+    """
+    d, n = Ut0.shape
+    m = Vt0.shape[1]
+    L = delta_i.shape[0]
+    if (tuple(Vt0.shape) != (d, m) or tuple(R.shape) != (n, m)
+            or tuple(rated.shape) != (n, m)):
+        raise ValueError(f"shape mismatch: Ut0 {tuple(Ut0.shape)}, Vt0 "
+                         f"{tuple(Vt0.shape)}, R {tuple(R.shape)}, rated "
+                         f"{tuple(rated.shape)}")
+    dev = _check_cuda("pmf_lookahead_fused", Ut0, Vt0, R, rated, delta_i,
+                      delta_j, delta_v, sigmas, ls_params)
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"pmf_lookahead_fused kernel takes 1 <= d <= "
+                         f"{MAX_D}; got d={d}")
+    if not (1 <= L <= 65535 and n >= 1 and m >= 1 and max_steps >= 0):
+        raise ValueError(f"pmf_lookahead_fused kernel takes 1 <= L <= 65535 "
+                         f"lanes, n, m >= 1 and max_steps >= 0; got L={L}, "
+                         f"n={n}, m={m}, max_steps={max_steps}")
+    if bool(((delta_i < 0) | (delta_i >= n) | (delta_j < 0)
+             | (delta_j >= m)).any()):
+        raise ValueError(f"pmf_lookahead_fused: a lane's cell lies outside "
+                         f"the {n} x {m} problem")
+    io = _BF16 if bf16 else _F32
+    Rio = R.to(io)
+    row_ptr, col_idx, r_row = _csr(rated, Rio, transpose=False)
+    col_ptr, row_idx, r_col = _csr(rated, Rio, transpose=True)
+    u0 = Ut0.to(io).mT.contiguous()
+    v0 = Vt0.to(io).mT.contiguous()
+    di = delta_i.to(torch.int32).contiguous()
+    dj = delta_j.to(torch.int32).contiguous()
+    dv = delta_v.to(_F32).contiguous()
+    sig = sigmas.to(_F32).contiguous()
+    ls = ls_params.to(_F32).contiguous()
+    # per-lane state (the outputs) and float32 proposal temporaries, each
+    # (L, rows, d)
+    u, gu = (torch.empty((L, n, d), dtype=io, device=dev) for _ in "ab")
+    v, gv = (torch.empty((L, m, d), dtype=io, device=dev) for _ in "ab")
+    up, gup = (torch.empty((L, n, d), dtype=_F32, device=dev) for _ in "ab")
+    vp, gvp = (torch.empty((L, m, d), dtype=_F32, device=dev) for _ in "ab")
+    f = torch.empty((L,), dtype=_F32, device=dev)
+    evals = torch.empty((L,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _entry_point("pmf_lookahead_fused")(
+        int(bf16), *(x.data_ptr() for x in (
+            u0, v0, row_ptr, col_idx, r_row, col_ptr, row_idx, r_col, di, dj,
+            dv, sig, ls, u, v, gu, gv, up, vp, gup, gvp, f, evals)),
+        L, n, m, d, int(max_steps), stream)
+    if err:
+        raise RuntimeError(f"pmf_lookahead_fused kernel launch failed: CUDA "
+                           f"error {err} (L={L}, n={n}, m={m}, d={d}, {io})")
+    pmf_lookahead_fused_cuda.launches[str(io)] += 1
+    return f, u.mT, v.mT, evals
+
+
+pmf_lookahead_fused_cuda.launches = collections.Counter()
+
+
+def pmf_lookahead_fused_t(
+    Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
+    max_steps: int, block_rows: int = 256, lanes_per_block: int = 8,
+    bf16: bool = True, kernel: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-line-search lookahead refit -> (neg_ll (L,), Ut (L, d, n),
+    Vt (L, d, m)), float32.
+
+    The port of ``amf_tpu/ops/pallas_kernels.py::pmf_lookahead_fused_t``:
+    every lane starts at the base factors (Ut0 (d, n), Vt0 (d, m)) and runs
+    the accept/reject ascent of ``fit_lookahead_batch`` with
+    ``ls_params = [lr0, stop_thresh, min_lr]`` for ``max_steps`` steps, in
+    one launch (see ``pmf_lookahead_fused_plain`` for the roundings).
+    """
+    del block_rows, lanes_per_block  # the TPU's tiling (module docstring)
+    fn = (pmf_lookahead_fused_cuda
+          if _use_kernel(Ut0, kernel, "pmf_lookahead_fused")
+          else pmf_lookahead_fused_plain)
+    f, Ut, Vt, _ = fn(Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas,
+                      ls_params, max_steps, bf16)
+    return f, Ut.to(_F32), Vt.to(_F32)

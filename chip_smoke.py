@@ -9,7 +9,9 @@ hand-written kernel of them against its plain PyTorch version on the card:
     (a 128-sample base chain, 30-sample lane chains, 32 candidates x 5
     values = 160 lanes a tile), through the Cholesky solve-and-sample kernel;
   * the PMF-refit lookahead (``fit_lookahead_batch``, tiles of 128 lanes)
-    and its ``add_rmse_boosts`` CLI, through the value+gradient kernel.
+    and its ``add_rmse_boosts`` CLI, through the value+gradient kernel;
+    its poly-LS epoch loop through the value+gradient and line-coefficient
+    kernels; its fused branch through the whole-line-search kernel.
 
     python3 chip_smoke.py
 
@@ -26,16 +28,29 @@ Phases (each raises on failure):
      L=128 lanes and at ragged shapes, with times;
   7. the bench's lane-blocked refit: 1024 candidates in 8 tiles, bf16 and
      f32, and the f32 kernel tile vs the plain refit;
-  8. the add_rmse_boosts CLI on a 256-cell pool (2 tiles, 200 refit steps).
-The launch counts are reset before phases 3, 7 and 8 and read after phases
-4, 7 and 8. The line before the last is the kernels' JSON; the last line is
+  8. the add_rmse_boosts CLI on a 256-cell pool (2 tiles, 200 refit steps);
+  9. line-coefficient kernel vs plain version, f32 and bf16, at L=128 lanes
+     from the fitted refit state and its gradients, and at ragged shapes;
+ 10. the poly-LS refit sweep (scripts/probe_poly_kernel.py's workload):
+     1024 candidates, poly-LS and proposal loop side by side, bf16 and f32,
+     and the f32 kernel tile vs the plain tile at the bench's values and at
+     the CLI's true values (8, 40 and 200 steps), with the epochs each
+     took;
+ 11. the fused refit: one 128-lane tile at 8 and 200 steps, f32 and bf16,
+     vs the unfused kernel path, and the kernel's own outputs (per lane the
+     evaluations, neg_ll and the factors) vs the plain version's.
+The launch counts are reset before phases 3, 7, 8, 10 and 11 and read
+after phases 4, 7, 8, 10 and 11, before the comparisons with the plain
+versions. The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import pickle
@@ -72,6 +87,35 @@ PK_N_CAND, PK_TILE, PK_REFIT_STEPS, PK_LANE_BLOCK = 1024, 128, 8, 8
 # the JAX paths
 REFIT_RTOL = 1e-4
 CLI_POOL, CLI_TILE = 256, 128
+# line-coefficient kernel vs plain version, |k - p| / (1 + |p|) on c1..c4:
+# the same products summed in other orders (c2 is a difference of two such
+# sums). bf16 rounds R and the factors identically on both sides; it is held
+# to 10x the float32 bound, for the larger terms of the rounded inputs.
+COEFF_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# fused refit: f32 vs the unfused kernel path to rtol 1e-4
+# (tests/test_pallas_kernels.py:176); bf16 vs f32 to 1e-2 (8 mantissa bits;
+# a residual rounded the other way may change one accept). At the CLI's
+# values and budget these are figures (phase 11 says why)
+FUSED_RTOL, FUSED_BF16_RTOL = 1e-4, 1e-2
+# the fused kernel vs its plain version, both dtypes, on its own outputs:
+# per lane the same evaluations, neg_ll to 1e-4 relative and the factors to
+# 1e-4 scaled, |k - p| / (1 + |p|). Both sides round the state identically
+# and differ in summation order only (readings <= 3.1e-6 on neg_ll and
+# <= 3.5e-8 on the factors: PERF.md, PR 4). Over the CLI's 200 steps in
+# float32, where lr grows 1.25x an accept, the gradients' last bits add up
+# in the factors (reading 3.4e-4) while neg_ll, at a flat optimum, moves by
+# their square: the factors get 1e-3 there.
+FUSED_KERNEL_TOL = dict(f=1e-4, factors=1e-4, factors_long=1e-3)
+# where lanes reject steps in float32, near-tie accepts move with the
+# summation order (phases 10, 11): there at least this many of the 128
+# lanes must make the plain version's proposals (poly-LS, 40 steps) or
+# evaluations (fused, 200 steps), and those lanes are held to the bounds
+# (readings: 127 and 127)
+SAME_COUNT_MIN = 120
+POLY_RTOL = 1e-4  # f32 poly kernel tile vs plain tile
+# a poly-LS budget at the CLI's values where rungs are rejected (at 8 steps
+# none is) and summation order has moved few lanes (at 200, 20 of 128)
+POLY_LADDER_STEPS = 40
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12}
@@ -155,6 +199,12 @@ def kernel_rows(device):
     return rows
 
 
+def mask_and_r_bytes(rated, isz: int) -> int:
+    """Bytes of the shared problem a PMF kernel must read: the mask once, R
+    only where rated (the lanes' own cells take delta_v instead)."""
+    return rated.numel() + int(rated.sum()) * isz
+
+
 def bound_ms(n_bytes: float, flops: float, dtype: str):
     """(least time in ms the card could take, what sets it)."""
     t_bytes = n_bytes / PEAK_BYTES_S
@@ -208,8 +258,8 @@ def value_grad_case(pk, R, rated, L, d, bf16, transposed, gen, time_it):
         cells = L * int(rated.sum()) + int((~rated[di, dj]).sum())
         isz = 2 if bf16 else 4
         osz = 2 if bf16 and transposed else 4
-        n_bytes = (n * m * (isz + 1) + L * (n + m) * d * (isz + osz)
-                   + L * 4 * 4)
+        n_bytes = (mask_and_r_bytes(rated, isz)
+                   + L * (n + m) * d * (isz + osz) + L * 4 * 4)
         row["bound_ms"], row["bound_by"] = bound_ms(
             n_bytes, 6.0 * d * cells, row["dtype"])
     print("value-grad-check " + json.dumps(row), flush=True)
@@ -272,6 +322,111 @@ def spearman(a, b) -> float:
     return float(np.corrcoef(ra, rb)[0, 1])
 
 
+def timed_ms(fn):
+    """(fn(), its time in ms by CUDA events, one call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+@contextlib.contextmanager
+def plain_versions(pk):
+    """``fit_lookahead_batch`` through the plain versions on the card."""
+    names = ("pmf_batched_value_grad_t", "pmf_line_coeffs_t",
+             "pmf_lookahead_fused_t")
+    saved = {k: getattr(pk, k) for k in names}
+    try:
+        for k, fn in saved.items():
+            setattr(pk, k, functools.partial(fn, kernel=False))
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(pk, k, fn)
+
+
+def own_cells(rated, di, dj) -> int:
+    """Cells the lanes' own cells add to the rated ones."""
+    return int((~rated[di, dj]).sum())
+
+
+def coeff_case(pk, args, bf16, time_it):
+    """Line-coefficient kernel vs plain version on ``args`` (Ut, Vt, Gut,
+    Gvt, R, rated, di, dj, dv, sigmas)."""
+    import torch
+
+    Ut, Vt, _, _, R, rated, di, dj = args[:8]
+    L, d, n = Ut.shape
+    m = Vt.shape[2]
+    dtype = "bfloat16" if bf16 else "float32"
+    got = torch.stack(pk.pmf_line_coeffs_t(*args, bf16=bf16))
+    want = torch.stack(pk.pmf_line_coeffs_t(*args, bf16=bf16, kernel=False))
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    scaled = (diff / (1 + want.abs())).max().item()
+    row = dict(dtype=dtype, L=L, n=n, m=m, d=d,
+               max_abs_err=diff.max().item(), scaled_err=scaled,
+               tol=COEFF_TOL[dtype])
+    if time_it:
+        row["ms"] = cuda_ms(lambda: pk.pmf_line_coeffs_t(*args, bf16=bf16),
+                            20)
+        row["plain_ms"] = cuda_ms(
+            lambda: pk.pmf_line_coeffs_t(*args, bf16=bf16, kernel=False), 3)
+        # the mask, R where rated, the factors and directions and the lanes'
+        # cells in once, 4 sums out; on each rated cell and lane cell pred
+        # (2d), P1 (4d), P2 (2d), 8 more
+        cells = L * int(rated.sum()) + own_cells(rated, di, dj)
+        isz = 2 if bf16 else 4
+        n_bytes = (mask_and_r_bytes(rated, isz) + 2 * L * (n + m) * d * isz
+                   + L * (12 + 16))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n_bytes, (8 * d + 8) * cells, dtype)
+    print("line-coeffs-check " + json.dumps(row), flush=True)
+    check(math.isfinite(scaled) and scaled <= COEFF_TOL[dtype],
+          f"line-coefficient kernel disagrees with plain version: {row}")
+    return row
+
+
+def coeff_rows(pk, rst, prob, di, dj, dv, sig, device):
+    """Phase 9: the refit state and its gradients at L=128, then ragged."""
+    import torch
+
+    L = PK_TILE
+    rows = []
+    for bf16 in (False, True):
+        io = torch.bfloat16 if bf16 else torch.float32
+        Ut = rst.U.mT.to(io).expand(L, D, N).contiguous()
+        Vt = rst.V.mT.to(io).expand(L, D, M).contiguous()
+        base = (prob.R_obs, prob.rated, di[:L], dj[:L], dv[:L], sig)
+        _, Gut, Gvt = pk.pmf_batched_value_grad_t(Ut, Vt, *base, bf16=bf16)
+        rows.append(coeff_case(pk, (Ut, Vt, Gut, Gvt, *base), bf16, True))
+    gen = torch.Generator(device=device).manual_seed(9)
+    for d in (3, 16, 32):
+        for bf16 in (False, True):
+            L, n, m = 3, 13, 9
+            R = torch.randint(1, 6, (n, m), generator=gen,
+                              device=device).float()
+            rated = torch.rand(n, m, generator=gen, device=device) < 0.5
+            fac = [torch.randn(L, d, k, generator=gen, device=device)
+                   for k in (n, m, n, m)]
+            cdi = torch.randint(0, n, (L,), generator=gen, device=device)
+            cdj = torch.randint(0, m, (L,), generator=gen, device=device)
+            on = torch.nonzero(rated)[0]  # lane 0 on a rated cell
+            cdi[0], cdj[0] = on[0], on[1]
+            cdv = torch.randint(1, 6, (L,), generator=gen,
+                                device=device).float()
+            csig = torch.tensor([0.8, 10.0, 7.0], device=device)
+            rows.append(coeff_case(pk, (*fac, R, rated, cdi, cdj, cdv, csig),
+                                   bf16, False))
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "amf_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: amf_tpu_torch/ is not beside this script; run it "
@@ -306,11 +461,12 @@ def main() -> int:
           f"python {sys.version.split()[0]} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        list(pool.map(cuda_build.build,
-                      ["chol_solve_sample", "pmf_value_grad"]))
+    pmf_sources = ["pmf_value_grad", "pmf_line_coeffs", "pmf_lookahead_fused"]
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
+        list(pool.map(cuda_build.build, ["chol_solve_sample", *pmf_sources]))
     ck._entry_points()
-    pk._entry_point()
+    for source in pmf_sources:
+        pk._entry_point(source)
     print(f"kernel build+load s {time.perf_counter() - t0:.1f}", flush=True)
 
     # ---- 2. kernel vs plain version on the card
@@ -556,6 +712,248 @@ def main() -> int:
         rst, prob, ti, tj, tv, rcfg, max_steps=200))
     print(json.dumps(dict(phase="refit_tile_profile", **split)), flush=True)
 
+    # ---- 9. line-coefficient kernel vs plain version
+    sig = torch.stack([rst.sigma_sq, rst.sigma_u_sq, rst.sigma_v_sq])
+    lc = coeff_rows(pk, rst, prob, di, dj, dv, sig, device)
+
+    # ---- 10. the poly-LS refit sweep (scripts/probe_poly_kernel.py)
+    def poly_sweep(poly, bf16):
+        return torch.cat([refit(s, lane_block=PK_LANE_BLOCK, block_rows=256,
+                                bf16=bf16, poly_ls=poly) for s in tiles])
+
+    def launch_total(counter):
+        return sum(counter.launches.values())
+
+    pk.pmf_value_grad_cuda.launches.clear()
+    pk.pmf_line_coeffs_cuda.launches.clear()
+    pk.pmf_value_grad_plain.calls = pk.pmf_line_coeffs_plain.calls = 0
+    poly_runs = []
+    poly_f = {}
+    for bf16 in (True, False):
+        for poly in (True, False):
+            poly_sweep(poly, bf16)  # warm
+            torch.cuda.synchronize()
+            b2 = launch_total(pk.pmf_value_grad_cuda)
+            b3 = launch_total(pk.pmf_line_coeffs_cuda)
+            t0 = time.perf_counter()
+            poly_f[bf16, poly] = poly_sweep(poly, bf16)
+            torch.cuda.synchronize()
+            poly_runs.append(dict(
+                poly_ls=poly, bf16=bf16,
+                candidates_per_s=PK_N_CAND / (time.perf_counter() - t0),
+                b2_launches=launch_total(pk.pmf_value_grad_cuda) - b2,
+                b3_launches=launch_total(pk.pmf_line_coeffs_cuda) - b3))
+    poly_launches = dict(pk.pmf_line_coeffs_cuda.launches)
+    check(pk.pmf_value_grad_plain.calls == 0
+          and pk.pmf_line_coeffs_plain.calls == 0,
+          "a plain version ran on the poly-LS refit path")
+    for bf16 in (True, False):
+        check(bool(torch.isfinite(poly_f[bf16, True]).all()),
+              f"non-finite poly-LS refit values (bf16={bf16})")
+        check(poly_launches.get(
+            "torch.bfloat16" if bf16 else "torch.float32", 0) > 0,
+            f"the poly-LS refit never launched the kernel (bf16={bf16})")
+    # the f32 poly kernel tile vs the plain tile, on one tile at the bench's
+    # values (each cell at its prediction: every lane stops after one epoch,
+    # on c1 alone) and at the CLI's (each cell at its true value: lr grows
+    # and the step budget runs out at 8 steps; at 40 rungs are rejected and
+    # lr falls by 0.5^consumed). An epoch is one B3 launch or one plain
+    # call. Where rungs are rejected, lanes that examined the same number of
+    # rungs are held to the bound; at the CLI's 200 steps even those part
+    # (2.2e-4 on the chip), so that run is a figure.
+    tile_vals = {"bench": dv[tiles[0]], "cli": tv}
+
+    def refit_tile(vals, steps, bf16, **kw):
+        return pmf.fit_lookahead_batch(rst, prob, ti, tj, tile_vals[vals],
+                                       rcfg, max_steps=steps,
+                                       lane_block=PK_LANE_BLOCK, bf16=bf16,
+                                       **kw)
+
+    def rel(a, b):
+        """Largest relative difference of two neg_ll vectors, or inf."""
+        return ((a - b).abs() / b.abs()).max().item() if len(b) else math.inf
+
+    def poly_tile(vals, steps):
+        """(neg_ll, proposals each lane examined) of one f32 poly tile."""
+        inner, seen = pmf._poly_epochs, []
+
+        def epochs(*a, **kw):
+            out = inner(*a, **kw)
+            seen.append(out[3])
+            return out
+
+        pmf._poly_epochs = epochs
+        try:
+            f = refit_tile(vals, steps, False, poly_ls=True)[2]
+        finally:
+            pmf._poly_epochs = inner
+        return f, seen[0]
+
+    poly_checks = {}
+    for vals, steps in (("bench", PK_REFIT_STEPS), ("cli", PK_REFIT_STEPS),
+                        ("cli", POLY_LADDER_STEPS), ("cli", FIT_BUDGET)):
+        b3 = launch_total(pk.pmf_line_coeffs_cuda)
+        kf, kn = poly_tile(vals, steps)
+        plain_calls = pk.pmf_line_coeffs_plain.calls
+        with plain_versions(pk):
+            pf, pn = poly_tile(vals, steps)
+        same = kn == pn
+        epochs = launch_total(pk.pmf_line_coeffs_cuda) - b3
+        row = poly_checks[f"{vals}/{steps}"] = dict(
+            epochs=epochs,
+            plain_epochs=pk.pmf_line_coeffs_plain.calls - plain_calls,
+            # > 0: the longest lane examined more rungs than there were
+            # epochs, so some epoch rejected its first rung
+            rejected_rungs_min=int(kn.max()) - epochs,
+            lanes_same_proposals=int(same.sum()),
+            lanes_within_rtol=int(((kf - pf).abs()
+                                   <= POLY_RTOL * pf.abs()).sum()),
+            f32_kernel_vs_plain_max_rel=rel(kf, pf),
+            same_lanes_max_rel=rel(kf[same], pf[same]))
+        if steps == FIT_BUDGET:
+            continue
+        ladder = steps == POLY_LADDER_STEPS
+        check(row["lanes_same_proposals"] >= (SAME_COUNT_MIN if ladder
+                                              else PK_TILE)
+              and row["same_lanes_max_rel"] <= POLY_RTOL
+              and (row["rejected_rungs_min"] > 0 or not ladder),
+              f"f32 poly-LS kernel tile vs plain tile ({vals}, {steps} "
+              f"steps): {row}")
+    loop32 = poly_f[False, False]
+    print(json.dumps(dict(
+        phase="poly_ls_refit", candidates=PK_N_CAND, tile=PK_TILE,
+        max_steps=PK_REFIT_STEPS, runs=poly_runs,
+        kernel_launches=poly_launches, checks=poly_checks, rtol=POLY_RTOL,
+        f32_poly_vs_proposal_loop_max_rel=(
+            (poly_f[False, True] - loop32).abs() / loop32.abs()).max().item(),
+        bf16_poly_vs_f32_poly_max_rel=(
+            (poly_f[True, True] - poly_f[False, True]).abs()
+            / poly_f[False, True].abs()).max().item())), flush=True)
+
+    # ---- 11. the fused refit on the same tile, at the bench's values
+    # (lanes stop within a few steps) and at the CLI's (lanes run to the
+    # step budget)
+    pk.pmf_lookahead_fused_cuda.launches.clear()
+    pk.pmf_lookahead_fused_plain.calls = 0
+    fused, fused_ms, n_calls = {}, {}, 0
+    for vals in tile_vals:
+        for steps in (8, FIT_BUDGET):
+            for bf16 in (False, True):
+                for _ in range(2):  # the second call is timed warm
+                    fused[vals, steps, bf16], fused_ms[vals, steps, bf16] = (
+                        timed_ms(lambda: refit_tile(vals, steps, bf16,
+                                                    fused=True)))
+                    n_calls += 1
+    fused_launches = dict(pk.pmf_lookahead_fused_cuda.launches)
+    check(sum(fused_launches.values()) == n_calls,
+          f"{n_calls} fused refits launched {fused_launches}: want one "
+          "launch a tile")
+    check(pk.pmf_lookahead_fused_plain.calls == 0,
+          "the plain fused version ran on the fused refit path")
+    fcheck = {}
+    for vals in tile_vals:
+        f_start = refit_tile(vals, 0, False)[2]
+        for steps in (8, FIT_BUDGET):
+            unfused, unfused_ms = timed_ms(
+                lambda: refit_tile(vals, steps, False))
+            k32, k16 = fused[vals, steps, False], fused[vals, steps, True]
+            row = dict(
+                f_start_max=f_start.max().item(),
+                fused_ms=fused_ms[vals, steps, False],
+                fused_bf16_ms=fused_ms[vals, steps, True],
+                unfused_ms=unfused_ms, f32_vs_unfused=rel(k32[2], unfused[2]),
+                bf16_vs_f32=rel(k16[2], k32[2]))
+            check(all(bool(torch.isfinite(x).all()) for x in k32 + k16),
+                  f"non-finite fused refit ({vals}, {steps} steps)")
+            # every lane ends at or below its start (one ulp for the value's
+            # other summation order; bf16 rounds the start itself)
+            check(bool((k32[2] <= f_start * (1 + 1e-6)).all()
+                       and (k16[2] <= f_start * (1 + 1e-2)).all()),
+                  f"a fused refit lane ended above its start ({vals})")
+            if not (vals == "cli" and steps == FIT_BUDGET):
+                check(row["f32_vs_unfused"] <= FUSED_RTOL
+                      and row["bf16_vs_f32"] <= FUSED_BF16_RTOL,
+                      f"fused refit disagrees ({vals}, {steps} steps): {row}")
+            else:
+                # a figure: at the edge of stability, accept tests compare
+                # values ~20 float32 ulps apart, so summation order alone
+                # changes where a lane stops. Shown by the proposal loop
+                # through its kernel against its plain version.
+                with plain_versions(pk):
+                    loop_plain = refit_tile(vals, steps, False)
+                row["unfused_kernel_vs_plain"] = rel(unfused[2], loop_plain[2])
+            fcheck[f"{vals}/{steps}"] = row
+
+    # the kernel's own outputs against its plain version's, per lane: the
+    # evaluations, neg_ll and the factors. Every lane makes the plain
+    # version's evaluations, except at the CLI's values and budget in
+    # float32, where near-tie accepts move (above): there at least
+    # SAME_COUNT_MIN lanes must, and those are held to the bounds.
+    ls = torch.tensor([rcfg.learning_rate, rcfg.stop_thresh,
+                       rcfg.min_learning_rate], device=device)
+    b5 = {dtype: dict(max_abs_err=0.0) for dtype in ("float32", "bfloat16")}
+    b5_checks = {}
+    for vals in tile_vals:
+        fargs = (rst.U.mT.contiguous(), rst.V.mT.contiguous(), prob.R_obs,
+                 prob.rated, ti, tj, tile_vals[vals], sig, ls)
+        for steps in (8, FIT_BUDGET):
+            for bf16 in (False, True):
+                dtype = "bfloat16" if bf16 else "float32"
+                got = pk.pmf_lookahead_fused_cuda(*fargs, steps, bf16)
+                want, plain_ms = timed_ms(lambda: pk.pmf_lookahead_fused_plain(
+                    *fargs, steps, bf16))
+                evals = got[3]
+                same = evals == want[3]
+                n_same = int(same.sum())
+                row = dict(lanes_same_evals=n_same,
+                           evals_max=int(evals.max()),
+                           evals_mean=float(evals.float().mean()),
+                           f_rel_all_lanes=rel(got[0], want[0]))
+                if n_same:
+                    k, p = ([x[same].float() for x in out[:3]]
+                            for out in (got, want))
+                    row.update(
+                        f_rel=rel(k[0], p[0]),
+                        factor_scaled=max(
+                            ((a - b).abs() / (1 + b.abs())).max().item()
+                            for a, b in zip(k[1:], p[1:])),
+                        max_abs_err=max((a - b).abs().max().item()
+                                        for a, b in zip(k, p)))
+                    b5[dtype]["max_abs_err"] = max(b5[dtype]["max_abs_err"],
+                                                   row["max_abs_err"])
+                b5_checks[f"{vals}/{steps}/{dtype}"] = row
+                near_tie = vals == "cli" and steps == FIT_BUDGET and not bf16
+                tol = FUSED_KERNEL_TOL
+                check(n_same >= (SAME_COUNT_MIN if near_tie else PK_TILE)
+                      and row["f_rel"] <= tol["f"]
+                      and row["factor_scaled"] <= tol[
+                          "factors_long" if near_tie else "factors"],
+                      f"fused kernel disagrees with plain version ({vals}, "
+                      f"{steps} steps, {dtype}): {row}")
+                if vals != "cli" or steps != FIT_BUDGET:
+                    continue
+                # timed at the CLI's values and budget. Bytes: the mask, R
+                # where rated, the base factors and the lanes' cells in, the
+                # lanes' factors, values and evaluations out; operations:
+                # pred, Gu and Gv, 6 d flops on each rated cell and lane
+                # cell at every evaluation each lane made
+                ms = cuda_ms(lambda: pk.pmf_lookahead_fused_t(
+                    *fargs, max_steps=steps, bf16=bf16), 3)
+                nnz = int(prob.rated.sum())
+                lane_cells = nnz + (~prob.rated[ti, tj]).to(torch.int64)
+                flops = 6 * D * int((evals.to(torch.int64) * lane_cells).sum())
+                isz = 2 if bf16 else 4
+                n_bytes = (mask_and_r_bytes(prob.rated, isz) + (N + M) * D * 4
+                           + PK_TILE * (N + M) * D * isz + PK_TILE * (12 + 8))
+                bms, bby = bound_ms(n_bytes, flops, dtype)
+                b5[dtype].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=bby, flops=flops, bytes=n_bytes)
+    print(json.dumps(dict(phase="fused_refit", lanes=PK_TILE,
+                          kernel_launches=fused_launches, checks=fcheck,
+                          rtol=FUSED_RTOL, bf16_rtol=FUSED_BF16_RTOL,
+                          kernel_vs_plain=b5_checks,
+                          kernel_tol=FUSED_KERNEL_TOL, kernel=b5)), flush=True)
+
     def vg_entry(layout, dtype, replaces, launches):
         row = next(r for r in vg if r["layout"] == layout
                    and r["dtype"] == dtype and r["L"] == VG_LANES)
@@ -591,6 +989,25 @@ def main() -> int:
                  refit_launches[("L,d,rows", "torch.float32")]),
         vg_entry("L,d,rows", "bfloat16", b2,
                  refit_launches[("L,d,rows", "torch.bfloat16")]),
+        *({"name": f"pmf_line_coeffs {dtype}", "route": "cuda",
+           "source": "amf_tpu_torch/csrc/pmf_line_coeffs.cu",
+           "replaces": "amf_tpu/ops/pallas_kernels.py:386",
+           "launches": poly_launches[f"torch.{dtype}"],
+           "max_abs_err": max(r["max_abs_err"] for r in lc
+                              if r["dtype"] == dtype),
+           **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None}
+          for dtype in ("float32", "bfloat16")
+          for row in [next(r for r in lc if r["dtype"] == dtype
+                           and r["L"] == PK_TILE)]),
+        *({"name": f"pmf_lookahead_fused {dtype}", "route": "cuda",
+           "source": "amf_tpu_torch/csrc/pmf_lookahead_fused.cu",
+           "replaces": "amf_tpu/ops/pallas_kernels.py:577",
+           "launches": fused_launches[f"torch.{dtype}"],
+           **{k: b5[dtype][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+           "library_ms": None}
+          for dtype in ("float32", "bfloat16")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ against the JAX package's, from the same fitted base state.
 Tolerances are those of tests/test_pallas_kernels.py:219-223, which holds
 the JAX paths to each other at max_steps=5: the value to rtol 1e-4, the
 factors to rtol 1e-3 with atol 1e-5 (float32 sums in other orders; an
-accept decided by a near-tie may differ).
+accept decided by a near-tie may differ). The poly-LS path runs at
+max_steps=25, as tests/test_pallas_kernels.py:298-307 runs it.
 """
 
 import jax
@@ -55,11 +56,16 @@ def _cells(lib):
     dict(use_pallas=False),
     dict(block_rows=8),
     dict(lane_block=2, bf16=False, block_rows=8),
+    dict(lane_block=2, bf16=False, block_rows=8, poly_ls=True, max_steps=25),
+    dict(lane_block=2, bf16=False, block_rows=8, fused=True),
 ])
 def test_matches_jax(case, monkeypatch, path):
-    """The plain path, the (L, rows, d) kernel path and the lane-blocked
-    (L, d, rows) path; the JAX kernels run in interpret mode."""
+    """The plain path, the (L, rows, d) kernel path, the lane-blocked
+    (L, d, rows) proposal loop, its poly-LS epoch loop and the fused line
+    search; the JAX kernels run in interpret mode."""
     jprob, jcfg, jst, tprob, tcfg, tst = case
+    path = dict(path)
+    steps = path.pop("max_steps", STEPS)
     orig_call = jpk.pl.pallas_call
 
     def interp_call(*args, **kw):
@@ -68,9 +74,9 @@ def test_matches_jax(case, monkeypatch, path):
 
     monkeypatch.setattr(jpk.pl, "pallas_call", interp_call)
     jU, jV, jf = jpmf.fit_lookahead_batch(
-        jst, jprob, *_cells("jax"), jcfg, max_steps=STEPS, **path)
+        jst, jprob, *_cells("jax"), jcfg, max_steps=steps, **path)
     tU, tV, tf = tpmf.fit_lookahead_batch(
-        tst, tprob, *_cells("torch"), tcfg, max_steps=STEPS, **path)
+        tst, tprob, *_cells("torch"), tcfg, max_steps=steps, **path)
     assert tU.shape == (3, 13, 3) and tV.shape == (3, 9, 3)
     assert tU.dtype == tV.dtype == tf.dtype == torch.float32
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-4)
@@ -95,10 +101,21 @@ def test_bf16_lane_blocked_path_is_finite_and_near_f32(case):
     np.testing.assert_allclose(f16.numpy(), f32.numpy(), rtol=1e-2)
 
 
-@pytest.mark.parametrize("flag,kernel", [("poly_ls", "B3"), ("fused", "B5")])
-def test_unported_paths_raise(case, flag, kernel):
+def test_poly_ls_without_lane_block_raises(case):
     _, _, _, tprob, tcfg, tst = case
-    with pytest.raises(NotImplementedError, match=kernel):
+    with pytest.raises(ValueError, match="lane_block"):
         tpmf.fit_lookahead_batch(tst, tprob, *_cells("torch"), tcfg,
-                                 max_steps=STEPS, lane_block=2,
-                                 **{flag: True})
+                                 max_steps=STEPS, poly_ls=True)
+
+
+def test_fused_without_lane_block_takes_the_proposal_loop(case):
+    """As the JAX package's ``if fused and lane_block``: with no lane block
+    ``fused`` changes nothing."""
+    _, _, _, tprob, tcfg, tst = case
+    for kw in (dict(), dict(use_pallas=False)):
+        got = tpmf.fit_lookahead_batch(tst, tprob, *_cells("torch"), tcfg,
+                                       max_steps=STEPS, fused=True, **kw)
+        want = tpmf.fit_lookahead_batch(tst, tprob, *_cells("torch"), tcfg,
+                                        max_steps=STEPS, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
