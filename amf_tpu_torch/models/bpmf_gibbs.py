@@ -11,11 +11,13 @@ Layout on the card:
     ``mean_rating`` (L,). One chain is the case L = 1;
   * lanes share the base problem's mask and ratings; each lane carries its
     one hypothesised cell (``types.LaneCells``). The masked Gram of every
-    row, S_i = sum_j mask_ij v_j v_j^T, is one batched matmul of the shared
-    mask against each lane's vec(v_j v_j^T), plus a one-cell correction for
-    the lane's cell; the same holds for the right-hand side;
+    row, S_i = sum_j mask_ij v_j v_j^T, is one matrix product of the shared
+    mask against each lane's packed lower triangle of v_j v_j^T, plus a
+    one-cell correction for the lane's cell; the same holds for the
+    right-hand side;
   * each row draw goes through the Cholesky solve-and-sample kernel
-    (ops/chol_kernel.py);
+    (ops/chol_kernel.py), which reads those products as they are left and
+    assembles S and the right-hand side itself;
   * each lane draws the noise of a whole Gibbs round in one call on its own
     generator (utils/rng.py), so launches grow with lanes x rounds and the
     scores do not depend on how candidates are tiled.
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from amf_tpu_torch.models import pmf
-from amf_tpu_torch.ops.chol_kernel import chol_solve_sample
+from amf_tpu_torch.ops.chol_kernel import chol_gram_solve_sample, tril_pairs
 from amf_tpu_torch.types import LaneCells, Problem
 from amf_tpu_torch.utils.rng import lane_gammas, lane_generators, lane_normals
 
@@ -138,6 +140,31 @@ def sample_hyperparam(
 # Batched conditional factor draws
 
 
+def _gram_products(
+    mask: torch.Tensor, masked_r: torch.Tensor, other: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every lane's masked Gram and right-hand-side products, rows minor,
+    as the solve-and-sample kernel reads them.
+
+    mask, masked_r (r, c) shared by all lanes, other (L, c, d). With
+    p = d (d + 1) / 2: Gt (L, p + d, r) holds, for every row i, the packed
+    lower triangle of sum_j mask_ij o_j o_j^T and then sum_j mask_ij o_j;
+    mrt (L, d, r) holds sum_j masked_r_ij o_j. Two matrix products; only
+    the p distinct products o_a o_b are formed.
+    """
+    L, c, d = other.shape
+    r = mask.shape[0]
+    a, b = tril_pairs(d, other.device)
+    p = a.shape[0]
+    ot = other.mT
+    Xt = other.new_empty((L, p + d, c))
+    torch.mul(ot[:, a], ot[:, b], out=Xt[:, :p])
+    Xt[:, p:] = ot
+    Gt = (Xt.view(L * (p + d), c) @ mask.T).view(L, p + d, r)
+    mrt = torch.bmm(Xt[:, p:], masked_r.T.expand(L, c, r))
+    return Gt, mrt
+
+
 def _sample_rows(
     mask: torch.Tensor,
     masked_r: torch.Tensor,
@@ -162,28 +189,13 @@ def _sample_rows(
     normals; ``center`` (L,) is subtracted from every rating (the chain's
     mean rating). ``cells`` = (row, col, dm, dr), each (L,), adds lane l's
     one hypothesised cell: the mask rises by dm and mask * ratings by dr at
-    (row, col). ``chol_kernel`` picks the CUDA kernel or the plain version
-    for CUDA tensors (ops/chol_kernel.py).
+    (row, col). The draw itself, with the assembly of S and the right-hand
+    side, is ``ops/chol_kernel.chol_gram_solve_sample``: ``chol_kernel``
+    picks its CUDA kernel or its plain version for CUDA tensors.
     """
-    L, c, d = other.shape
-    r = mask.shape[0]
-    # one batched matmul gives every lane's Gram, S_i = mask @ vec(v v^T),
-    # and mask @ other (for the centering) side by side
-    vv = (other[..., :, None] * other[..., None, :]).reshape(L, c, d * d)
-    G = torch.bmm(mask.expand(L, r, c), torch.cat([vv, other], dim=-1))
-    S = alpha[:, None] + beta * G[..., :d * d].reshape(L, r, d, d)
-    mr = torch.bmm(masked_r.expand(L, r, c), other)
-    if center is not None:
-        mr = mr - center[:, None, None] * G[..., d * d:]
-    rhs = beta * mr + (alpha @ mu[..., None])[:, None, :, 0]
-    if cells is not None:
-        row, col, dm, dr = cells
-        lane = torch.arange(L, device=other.device)
-        o = other[lane, col]  # (L, d) the lane cell's factor row
-        S[lane, row] += (beta * dm)[:, None, None] * (o[:, :, None] * o[:, None, :])
-        shift = dr if center is None else dr - dm * center
-        rhs[lane, row] += (beta * shift)[:, None] * o
-    return chol_solve_sample(S, rhs, z, kernel=chol_kernel)
+    Gt, mrt = _gram_products(mask, masked_r, other)
+    return chol_gram_solve_sample(Gt, mrt, z, alpha, mu, beta, center, cells,
+                                  other, kernel=chol_kernel)
 
 
 class RoundNoise(NamedTuple):

@@ -313,8 +313,9 @@ def fit_lookahead_batch(
     ``poly_ls`` needs ``lane_block > 0`` (ValueError); ``fused`` without it
     takes the proposal loop, as in the JAX package. On CUDA tensors the
     kernel paths launch the CUDA kernels (the JAX name ``use_pallas`` is
-    kept). Returns (U (L, n, d), V (L, m, d), neg_ll (L,)), float32.
-    Assumes subtract_mean=False, as the JAX function does.
+    kept), on one index of the rated cells built here, once a call.
+    Returns (U (L, n, d), V (L, m, d), neg_ll (L,)), float32. Assumes
+    subtract_mean=False, as the JAX function does.
     """
     from amf_tpu_torch.ops import pmf_kernels as pk
 
@@ -324,6 +325,11 @@ def fit_lookahead_batch(
     sigmas = torch.stack(
         [state.sigma_sq, state.sigma_u_sq, state.sigma_v_sq]).to(f32)
     args = (problem.R_obs, problem.rated, delta_i, delta_j, delta_v, sigmas)
+    # the kernels' walk of the rated cells, indexed once for the whole refit
+    # (it synchronises the host); the plain versions on the CPU take none
+    index = None
+    if problem.R_obs.is_cuda and (lane_block or use_pallas):
+        index = pk.rated_index(problem.rated, problem.R_obs, bf16=bf16)
     if fused and lane_block:
         ls_params = torch.tensor(
             [cfg.learning_rate, cfg.stop_thresh, cfg.min_learning_rate],
@@ -331,7 +337,7 @@ def fit_lookahead_batch(
         f, Ut, Vt = pk.pmf_lookahead_fused_t(
             state.U.mT.to(f32), state.V.mT.to(f32), *args, ls_params,
             max_steps=max_steps, block_rows=block_rows,
-            lanes_per_block=lane_block, bf16=bf16)
+            lanes_per_block=lane_block, bf16=bf16, index=index)
         return Ut.mT, Vt.mT, f
     if poly_ls and not lane_block:
         raise ValueError("poly_ls requires lane_block > 0")
@@ -343,6 +349,7 @@ def fit_lookahead_batch(
                                                  bf16=bf16)
     else:
         fn, kw = pk.pmf_batched_value_grad_reference, {}
+    vg_kw = dict(kw, index=index) if lane_block or use_pallas else kw
 
     U0 = state.U.to(f32).expand(L, n, cfg.latent_d)
     V0 = state.V.to(f32).expand(L, m, cfg.latent_d)
@@ -353,12 +360,12 @@ def fit_lookahead_batch(
     U0, V0 = U0.contiguous(), V0.contiguous()
     if poly_ls:
         U, V, f, _ = _poly_epochs(
-            lambda U, V: fn(U, V, *args, **kw),
+            lambda U, V: fn(U, V, *args, **vg_kw),
             lambda *uvg: pk.pmf_line_coeffs_t(*uvg, *args, **kw),
             U0, V0, cfg, max_steps)
     else:
         def value_and_grad_fn(uv):
-            f, gu, gv = fn(*uv, *args, **kw)
+            f, gu, gv = fn(*uv, *args, **vg_kw)
             return f, (gu, gv)
 
         def step_fn(uv, g, lr):

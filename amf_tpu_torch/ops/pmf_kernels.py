@@ -14,7 +14,10 @@ accept/reject ascent. Its kernels mirror ``amf_tpu/ops/pallas_kernels.py``:
         Gu     = E V / s - U / su,        Gv = E^T U / s - V / sv
 
     The kernel returns the data term ``sum E^2`` and the gradients; the
-    wrappers add the prior terms, as the JAX wrappers do;
+    wrappers add the prior terms, as the JAX wrappers do. It walks an
+    index of the rated cells (``rated_index``: CSR, CSC and the CSC -> CSR
+    positions), built once a refit tile and handed down, never the dense
+    mask;
   * the improvement quartic of the poly line search along the ray
     (U + a Gu, V + a Gv) (``pmf_line_coeffs_t``, ``csrc/pmf_line_coeffs.cu``):
     the kernel gives the masked reductions a2 = <E, P2>, a11 = <mP1, P1>,
@@ -22,7 +25,8 @@ accept/reject ascent. Its kernels mirror ``amf_tpu/ops/pallas_kernels.py``:
     P2 = Gu Gv^T; the wrapper assembles c1..c4 from them and from the
     gradients' norms;
   * the whole line search of every lane in one launch
-    (``pmf_lookahead_fused_t``, ``csrc/pmf_lookahead_fused.cu``).
+    (``pmf_lookahead_fused_t``, ``csrc/pmf_lookahead_fused.cu``), on the
+    same index.
 
 Precision: ``bf16`` streams R, the mask and the factors in bfloat16 and
 accumulates every sum in float32. The (L, d, rows) value+gradient kernel
@@ -44,7 +48,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,7 +60,7 @@ _BF16 = torch.bfloat16
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each source's C function ``amf_<source>``
 _ARGTYPES = {
-    "pmf_value_grad": [_I] * 3 + [_P] * 12 + [_LL] * 3 + [_I] + [_LL] * 6
+    "pmf_value_grad": [_I] * 4 + [_P] * 16 + [_LL] * 4 + [_I] + [_LL] * 6
     + [_P],
     "pmf_line_coeffs": [_I] + [_P] * 11 + [_LL] * 3 + [_I] + [_P],
     "pmf_lookahead_fused": [_I] + [_P] * 23 + [_LL] * 3 + [_I] * 2 + [_P],
@@ -115,6 +119,69 @@ def _check_cuda(name, *tensors):
     return dev
 
 
+class RatedIndex(NamedTuple):
+    """The rated cells of a shared (n, m) problem as the kernels walk them:
+    by row (CSR), by column (CSC), and each CSC entry's position in CSR
+    order. Indices int32, columns ascending within a row and rows within a
+    column; R's values in the streaming dtype."""
+
+    row_ptr: torch.Tensor  # (n + 1,) CSR pointers
+    col_idx: torch.Tensor  # (nnz,) column of each cell, row by row
+    r_row: torch.Tensor  # (nnz,) R of each cell, in CSR order
+    col_ptr: torch.Tensor  # (m + 1,) CSC pointers
+    row_idx: torch.Tensor  # (nnz,) row of each cell, column by column
+    r_col: torch.Tensor  # (nnz,) R of each cell, in CSC order
+    csc_pos: torch.Tensor  # (nnz,) CSR position of each CSC entry
+    shape: Tuple[int, int]
+    nnz: int
+
+
+def rated_index(rated: torch.Tensor, R: torch.Tensor,
+                bf16: bool = False) -> RatedIndex:
+    """Index the rated cells of ``rated`` (n, m), with R rounded to the
+    streaming dtype (bfloat16 with ``bf16``, else float32).
+
+    Built with torch ops; ``nonzero`` synchronises the host, so a refit
+    builds it once a tile (``models/pmf.fit_lookahead_batch``) and not once
+    an evaluation.
+    """
+    rated_index.calls += 1
+    n, m = rated.shape
+    mask = rated.to(torch.bool)
+    rows, cols = torch.nonzero(mask, as_tuple=True)  # row by row
+    r_row = R[rows, cols].to(_BF16 if bf16 else _F32)
+    # column by column, rows ascending: sort the cells by (column, row)
+    csc_pos = torch.argsort(cols * n + rows)
+
+    def pointers(idx, size):
+        ptr = torch.zeros(size + 1, dtype=torch.int32, device=R.device)
+        ptr[1:] = torch.cumsum(torch.bincount(idx, minlength=size), 0)
+        return ptr
+
+    i32 = torch.int32
+    return RatedIndex(
+        row_ptr=pointers(rows, n), col_idx=cols.to(i32),
+        r_row=r_row.contiguous(), col_ptr=pointers(cols, m),
+        row_idx=rows[csc_pos].to(i32), r_col=r_row[csc_pos],
+        csc_pos=csc_pos.to(i32), shape=(n, m), nnz=rows.shape[0])
+
+
+rated_index.calls = 0
+
+
+def _index_for(index: Optional[RatedIndex], rated, R, io) -> RatedIndex:
+    """``index`` checked against the problem, or a fresh one."""
+    if index is None:
+        return rated_index(rated, R, bf16=io == _BF16)
+    if index.shape != tuple(rated.shape) or index.r_row.dtype != io or (
+            index.r_row.device != R.device):
+        raise ValueError(f"rated-cell index of shape {index.shape}, "
+                         f"{index.r_row.dtype} on {index.r_row.device} does "
+                         f"not fit a {tuple(rated.shape)} problem in {io} on "
+                         f"{R.device}")
+    return index
+
+
 def pmf_value_grad_plain(
     U: torch.Tensor, V: torch.Tensor, R: torch.Tensor, rated: torch.Tensor,
     delta_i: torch.Tensor, delta_j: torch.Tensor, delta_v: torch.Tensor,
@@ -164,17 +231,21 @@ def pmf_value_grad_cuda(
     U: torch.Tensor, V: torch.Tensor, R: torch.Tensor, rated: torch.Tensor,
     delta_i: torch.Tensor, delta_j: torch.Tensor, delta_v: torch.Tensor,
     sigmas: torch.Tensor, *, transposed: bool, round_resid: bool,
-    out_dtype: torch.dtype,
+    out_dtype: torch.dtype, index: Optional[RatedIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel -> (sum E^2 (L,) f32, Gu like U, Gv like V).
 
-    U, V and R on one CUDA device in one dtype, float32 or bfloat16; U is
+    U and V on one CUDA device in one dtype, float32 or bfloat16; U is
     (L, n, d) and V (L, m, d), or (L, d, n) and (L, d, m) when
-    ``transposed``; 1 <= d <= 32. Gradients come back in ``out_dtype``, in
+    ``transposed``; 1 <= d <= 32. The kernel walks ``index``, the rated
+    cells of (``rated``, R) in U's dtype; without one it is built here,
+    which synchronises the host. Gradients come back in ``out_dtype``, in
     U's and V's layout; the variants are (float32 in and out), (bf16 in,
-    float32 out) and (bf16 in and out with ``round_resid``). The launch
-    goes on the current stream and does not synchronise. ``launches``
-    counts launches by (layout, input dtype).
+    float32 out) and (bf16 in and out with ``round_resid``). A lane's
+    factors and residuals go to shared memory where they fit a block, else
+    the factors stay in global memory (``variants`` counts both). One
+    launch on the current stream, no synchronisation. ``launches`` counts
+    launches by (layout, input dtype).
     """
     if U.dim() != 3 or V.dim() != 3:
         raise ValueError(f"want 3-d factors; got {tuple(U.shape)}, "
@@ -195,9 +266,9 @@ def pmf_value_grad_cuda(
                          f"{tuple(rated.shape)} (transposed={transposed})")
     dev = _check_cuda("pmf_value_grad", U, V, R, rated, delta_i, delta_j,
                       delta_v, sigmas)
-    if U.dtype not in (_F32, _BF16) or not (V.dtype == R.dtype == U.dtype):
-        raise TypeError(f"want U, V, R in one dtype, float32 or bfloat16; "
-                        f"got {U.dtype}, {V.dtype}, {R.dtype}")
+    if U.dtype not in (_F32, _BF16) or V.dtype != U.dtype:
+        raise TypeError(f"want U and V in one dtype, float32 or bfloat16; "
+                        f"got {U.dtype}, {V.dtype}")
     combo = (U.dtype == _BF16, out_dtype == _BF16, bool(round_resid))
     if combo not in ((False, False, False), (True, False, False),
                      (True, True, True)):
@@ -206,55 +277,79 @@ def pmf_value_grad_cuda(
     if not 1 <= d <= MAX_D:
         raise ValueError(f"pmf_value_grad kernel takes 1 <= d <= {MAX_D}; "
                          f"got d={d}")
-    if not (1 <= L <= 65535 and n >= 1 and m >= 1):
-        raise ValueError(f"pmf_value_grad kernel takes 1 <= L <= 65535 "
-                         f"lanes and n, m >= 1; got L={L}, n={n}, m={m}")
-    U, V, R = U.contiguous(), V.contiguous(), R.contiguous()
-    mask = rated.to(torch.bool).contiguous().view(torch.uint8)
-    di = delta_i.to(torch.int32).contiguous()
-    dj = delta_j.to(torch.int32).contiguous()
+    if not (L >= 1 and n >= 1 and m >= 1):
+        raise ValueError(f"pmf_value_grad kernel takes L, n, m >= 1; got "
+                         f"L={L}, n={n}, m={m}")
+    ix = _index_for(index, rated, R, U.dtype)
+    U, V = U.contiguous(), V.contiguous()
+    di = delta_i.long().contiguous()
+    dj = delta_j.long().contiguous()
     dv = delta_v.to(_F32).contiguous()
     sig = sigmas.to(_F32).contiguous()
     gu = torch.empty(U.shape, dtype=out_dtype, device=dev)
     gv = torch.empty(V.shape, dtype=out_dtype, device=dev)
-    row_sq = torch.empty((L, n), dtype=_F32, device=dev)
     sqerr = torch.empty((L,), dtype=_F32, device=dev)
-    # element strides (lane, row, k) of each factor
-    su = (U.stride(0), U.stride(2), U.stride(1)) if transposed else U.stride()
-    sv = (V.stride(0), V.stride(2), V.stride(1)) if transposed else V.stride()
+    fn = _entry_point()
+    shared = _fits_shared(n, m, ix.nnz, d)
+    scratch = None if shared else torch.empty((L, ix.nnz + 1), dtype=_F32,
+                                              device=dev)
+    # element strides (lane, row, k) of each contiguous factor
+    su = (d * n, 1, n) if transposed else (n * d, d, 1)
+    sv = (d * m, 1, m) if transposed else (m * d, d, 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry_point()(
-        *map(int, combo), U.data_ptr(), V.data_ptr(), R.data_ptr(),
-        mask.data_ptr(), di.data_ptr(), dj.data_ptr(), dv.data_ptr(),
-        sig.data_ptr(), gu.data_ptr(), gv.data_ptr(), row_sq.data_ptr(),
-        sqerr.data_ptr(), L, n, m, d, *su, *sv, stream)
+    err = fn(
+        *map(int, combo), int(shared), U.data_ptr(), V.data_ptr(),
+        ix.row_ptr.data_ptr(), ix.col_idx.data_ptr(), ix.r_row.data_ptr(),
+        ix.col_ptr.data_ptr(), ix.row_idx.data_ptr(), ix.csc_pos.data_ptr(),
+        di.data_ptr(), dj.data_ptr(), dv.data_ptr(), sig.data_ptr(),
+        gu.data_ptr(), gv.data_ptr(),
+        0 if shared else scratch.data_ptr(), sqerr.data_ptr(), L, n, m,
+        ix.nnz, d, *su, *sv, stream)
     if err:
         raise RuntimeError(f"pmf_value_grad kernel launch failed: CUDA error "
-                           f"{err} (L={L}, n={n}, m={m}, d={d}, {U.dtype})")
+                           f"{err} (L={L}, n={n}, m={m}, d={d}, {U.dtype}, "
+                           f"shared={shared})")
     pmf_value_grad_cuda.launches[
         ("L,d,rows" if transposed else "L,rows,d", str(U.dtype))] += 1
+    pmf_value_grad_cuda.variants["shared" if shared else "global"] += 1
     return sqerr, gu, gv
 
 
 pmf_value_grad_cuda.launches = collections.Counter()
+pmf_value_grad_cuda.variants = collections.Counter()
+
+
+@functools.cache
+def _fits_shared(n: int, m: int, nnz: int, d: int) -> bool:
+    """Whether a lane's factors and residuals fit the shared memory a block
+    may take: the library's ``amf_pmf_value_grad_smem_bytes(n, m, nnz, d)``
+    against its ``amf_pmf_value_grad_smem_limit()``."""
+    from amf_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("pmf_value_grad")
+    need, limit = (lib.amf_pmf_value_grad_smem_bytes,
+                   lib.amf_pmf_value_grad_smem_limit)
+    need.argtypes, limit.argtypes = [_LL] * 3 + [_I], []
+    need.restype = limit.restype = _LL
+    return need(n, m, nnz, d) <= limit()
 
 
 def _value_grad(U, V, R, rated, delta_i, delta_j, delta_v, sigmas, *,
-                transposed, bf16, round_resid, out_dtype, kernel):
+                transposed, bf16, round_resid, out_dtype, kernel, index):
     """The shared body of both wrappers (see the module docstring)."""
     io = _BF16 if bf16 else _F32
-    Ui, Vi, Ri = U.to(io), V.to(io), R.to(io)
+    Ui, Vi = U.to(io), V.to(io)
     if _use_kernel(U, kernel, "pmf_value_grad"):
         sqerr, gu, gv = pmf_value_grad_cuda(
-            Ui, Vi, Ri, rated, delta_i, delta_j, delta_v, sigmas,
+            Ui, Vi, R, rated, delta_i, delta_j, delta_v, sigmas,
             transposed=transposed, round_resid=round_resid,
-            out_dtype=out_dtype)
+            out_dtype=out_dtype, index=index)
     else:
         def rows(x):  # the plain version works in (L, rows, d)
             return x.mT if transposed else x
 
         sqerr, gu, gv = pmf_value_grad_plain(
-            rows(Ui.to(_F32)), rows(Vi.to(_F32)), Ri.to(_F32), rated,
+            rows(Ui.to(_F32)), rows(Vi.to(_F32)), R.to(io).to(_F32), rated,
             delta_i, delta_j, delta_v, sigmas, round_resid=round_resid)
         gu = rows(gu).to(out_dtype).contiguous()
         gv = rows(gv).to(out_dtype).contiguous()
@@ -264,35 +359,40 @@ def _value_grad(U, V, R, rated, delta_i, delta_j, delta_v, sigmas, *,
 def pmf_batched_value_grad(
     U, V, R, rated, delta_i, delta_j, delta_v, sigmas,
     block_rows: int = 256, bf16: bool = False, kernel: bool = True,
+    index: Optional[RatedIndex] = None,
 ):
     """Per-lane (neg_ll (L,), Gu (L, n, d), Gv (L, m, d)); factors
     (L, rows, d).
 
     The port of ``amf_tpu/ops/pallas_kernels.py::pmf_batched_value_grad``.
-    Gradients are float32, also with ``bf16``.
+    Gradients are float32, also with ``bf16``. ``index`` is the problem's
+    ``rated_index`` in the streaming dtype, for the kernel; without one the
+    kernel path builds it. The plain version ignores it.
     """
     del block_rows  # the TPU's tiling (module docstring)
     return _value_grad(U, V, R, rated, delta_i, delta_j, delta_v, sigmas,
                        transposed=False, bf16=bf16, round_resid=False,
-                       out_dtype=_F32, kernel=kernel)
+                       out_dtype=_F32, kernel=kernel, index=index)
 
 
 def pmf_batched_value_grad_t(
     Ut, Vt, R, rated, delta_i, delta_j, delta_v, sigmas,
     block_rows: int = 256, lanes_per_block: int = 8, bf16: bool = True,
-    kernel: bool = True,
+    kernel: bool = True, index: Optional[RatedIndex] = None,
 ):
     """Per-lane (neg_ll (L,), Gut (L, d, n), Gvt (L, d, m)); factors
     (L, d, rows).
 
     The port of ``amf_tpu/ops/pallas_kernels.py::pmf_batched_value_grad_t``.
     With ``bf16`` the residual is rounded to bf16 before the contractions
-    and the gradients come back in bf16.
+    and the gradients come back in bf16. ``index`` as in
+    ``pmf_batched_value_grad``.
     """
     del block_rows, lanes_per_block  # the TPU's tiling (module docstring)
     return _value_grad(Ut, Vt, R, rated, delta_i, delta_j, delta_v, sigmas,
                        transposed=True, bf16=bf16, round_resid=bf16,
-                       out_dtype=_BF16 if bf16 else _F32, kernel=kernel)
+                       out_dtype=_BF16 if bf16 else _F32, kernel=kernel,
+                       index=index)
 
 
 # ---------------------------------------------------------------------------
@@ -486,32 +586,21 @@ def pmf_lookahead_fused_plain(
 pmf_lookahead_fused_plain.calls = 0
 
 
-def _csr(rated, R, transpose: bool):
-    """(pointers (rows + 1,), column indices, values) of the rated cells of
-    ``rated`` (or of its transpose), int32 indices, in row order."""
-    mask = rated.to(torch.bool)
-    if transpose:
-        mask, R = mask.mT, R.mT
-    rows, cols = torch.nonzero(mask, as_tuple=True)
-    ptr = torch.zeros(mask.shape[0] + 1, dtype=torch.int32, device=R.device)
-    ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=mask.shape[0]), 0)
-    return ptr, cols.to(torch.int32).contiguous(), R[rows, cols].contiguous()
-
-
 def pmf_lookahead_fused_cuda(
     Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
-    max_steps: int, bf16: bool,
+    max_steps: int, bf16: bool, index: Optional[RatedIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel -> (f (L,) float32, Ut (L, d, n), Vt (L, d, m)
     in the streaming dtype, evaluations (L,) int32); the contract of
     ``pmf_lookahead_fused_plain``.
 
     Ut0 (d, n), Vt0 (d, m), R and ``rated`` (n, m) on one CUDA device;
-    1 <= d <= 32; every lane's cell inside the problem. The wrapper
-    indexes the rated cells of the shared mask once (by row and by column,
-    with torch ops: data preparation); one thread block runs one lane's
-    whole line search. The launch goes on the current stream and does not
-    synchronise, but checking the cells and indexing the mask do.
+    1 <= d <= 32; every lane's cell inside the problem. The kernel walks
+    ``index`` (``rated_index`` of the problem in the streaming dtype, by
+    row and by column); without one it is built here. One thread block
+    runs one lane's whole line search. The launch goes on the current
+    stream and does not synchronise, but checking the cells and indexing
+    the mask do.
     ``launches`` counts launches by streaming dtype.
     """
     d, n = Ut0.shape
@@ -536,9 +625,7 @@ def pmf_lookahead_fused_cuda(
         raise ValueError(f"pmf_lookahead_fused: a lane's cell lies outside "
                          f"the {n} x {m} problem")
     io = _BF16 if bf16 else _F32
-    Rio = R.to(io)
-    row_ptr, col_idx, r_row = _csr(rated, Rio, transpose=False)
-    col_ptr, row_idx, r_col = _csr(rated, Rio, transpose=True)
+    ix = _index_for(index, rated, R, io)
     u0 = Ut0.to(io).mT.contiguous()
     v0 = Vt0.to(io).mT.contiguous()
     di = delta_i.to(torch.int32).contiguous()
@@ -557,8 +644,9 @@ def pmf_lookahead_fused_cuda(
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _entry_point("pmf_lookahead_fused")(
         int(bf16), *(x.data_ptr() for x in (
-            u0, v0, row_ptr, col_idx, r_row, col_ptr, row_idx, r_col, di, dj,
-            dv, sig, ls, u, v, gu, gv, up, vp, gup, gvp, f, evals)),
+            u0, v0, ix.row_ptr, ix.col_idx, ix.r_row, ix.col_ptr, ix.row_idx,
+            ix.r_col, di, dj, dv, sig, ls, u, v, gu, gv, up, vp, gup, gvp, f,
+            evals)),
         L, n, m, d, int(max_steps), stream)
     if err:
         raise RuntimeError(f"pmf_lookahead_fused kernel launch failed: CUDA "
@@ -574,6 +662,7 @@ def pmf_lookahead_fused_t(
     Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
     max_steps: int, block_rows: int = 256, lanes_per_block: int = 8,
     bf16: bool = True, kernel: bool = True,
+    index: Optional[RatedIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-line-search lookahead refit -> (neg_ll (L,), Ut (L, d, n),
     Vt (L, d, m)), float32.
@@ -583,11 +672,13 @@ def pmf_lookahead_fused_t(
     the accept/reject ascent of ``fit_lookahead_batch`` with
     ``ls_params = [lr0, stop_thresh, min_lr]`` for ``max_steps`` steps, in
     one launch (see ``pmf_lookahead_fused_plain`` for the roundings).
+    ``index`` as in ``pmf_batched_value_grad``.
     """
     del block_rows, lanes_per_block  # the TPU's tiling (module docstring)
-    fn = (pmf_lookahead_fused_cuda
-          if _use_kernel(Ut0, kernel, "pmf_lookahead_fused")
-          else pmf_lookahead_fused_plain)
-    f, Ut, Vt, _ = fn(Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas,
-                      ls_params, max_steps, bf16)
+    args = (Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
+            max_steps, bf16)
+    if _use_kernel(Ut0, kernel, "pmf_lookahead_fused"):
+        f, Ut, Vt, _ = pmf_lookahead_fused_cuda(*args, index=index)
+    else:
+        f, Ut, Vt, _ = pmf_lookahead_fused_plain(*args)
     return f, Ut.to(_F32), Vt.to(_F32)

@@ -18,17 +18,24 @@ hand-written kernel of them against its plain PyTorch version on the card:
 Phases (each raises on failure):
   1. environment and kernel builds (one nvcc per source, in parallel, at
      first use, into build/);
-  2. Cholesky kernel vs plain version at the main path's batch sizes and
-     at other d;
-  3. the f32 Gibbs lookahead tile: finite scores, kernel launched, plain
-     unused;
+  2. Cholesky kernel vs plain version, both entry points: S given, at the
+     main path's batch sizes and at other d; fed from the Gram, at the main
+     path's two row draws (160 lanes, r = 943 and 1682), ragged and at
+     other d, with and without centre and cells; and the time from the
+     Gram products to x the earlier way (assembly in PyTorch, then the
+     S-given entry) beside the Gram-fed one;
+  3. the f32 Gibbs lookahead tile: finite scores, the Gram-fed kernel
+     launched 120 times a tile, plain unused;
   4. the active loop (run_active_gibbs), 3 records on a 64-cell pool;
   5. the same tile in f64 through the kernel and through the plain version;
   6. value+gradient kernel vs plain version, both layouts, f32 and bf16, at
-     L=128 lanes and at ragged shapes, with times;
+     L=128 lanes and at ragged shapes, with times; the variant that leaves
+     the factors in global memory at d=32; the value bit for bit over two
+     runs;
   7. the bench's lane-blocked refit: 1024 candidates in 8 tiles, bf16 and
      f32, and the f32 kernel tile vs the plain refit;
-  8. the add_rmse_boosts CLI on a 256-cell pool (2 tiles, 200 refit steps);
+  8. the add_rmse_boosts CLI on a 256-cell pool (2 tiles, 200 refit steps),
+     and the profile of one such tile (one index build, no mask scan);
   9. line-coefficient kernel vs plain version, f32 and bf16, at L=128 lanes
      from the fitted refit state and its gradients, and at ragged shapes;
  10. the poly-LS refit sweep (scripts/probe_poly_kernel.py's workload):
@@ -41,7 +48,7 @@ Phases (each raises on failure):
      evaluations, neg_ll and the factors) vs the plain version's.
 The launch counts are reset before phases 3, 7, 8, 10 and 11 and read
 after phases 4, 7, 8, 10 and 11, before the comparisons with the plain
-versions. The line before the last is the kernels' JSON; the last line is
+versions; phases 7, 8 and 10 also count the index builds (one a refit). The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -118,7 +125,7 @@ POLY_RTOL = 1e-4  # f32 poly kernel tile vs plain tile
 POLY_LADDER_STEPS = 40
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS_S = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
 
 
 def check(ok: bool, what: str) -> None:
@@ -199,6 +206,127 @@ def kernel_rows(device):
     return rows
 
 
+def sample_rows_assembled(ck, mask, masked_r, other, mu, alpha, beta, z,
+                          center, cells):
+    """The row draw with S and the right-hand side assembled in PyTorch as
+    (L, r, d, d) and (L, r, d), then the S-given kernel entry: the path the
+    Gram-fed entry replaced, kept here to time the two side by side."""
+    import torch
+
+    L, c, d = other.shape
+    r = mask.shape[0]
+    vv = (other[..., :, None] * other[..., None, :]).reshape(L, c, d * d)
+    G = torch.bmm(mask.expand(L, r, c), torch.cat([vv, other], dim=-1))
+    S = alpha[:, None] + beta * G[..., :d * d].reshape(L, r, d, d)
+    mr = torch.bmm(masked_r.expand(L, r, c), other)
+    if center is not None:
+        mr = mr - center[:, None, None] * G[..., d * d:]
+    rhs = beta * mr + (alpha @ mu[..., None])[:, None, :, 0]
+    if cells is not None:
+        row, col, dm, dr = cells
+        lane = torch.arange(L, device=other.device)
+        o = other[lane, col]
+        S[lane, row] += (beta * dm)[:, None, None] * (o[:, :, None]
+                                                      * o[:, None, :])
+        shift = dr if center is None else dr - dm * center
+        rhs[lane, row] += (beta * shift)[:, None] * o
+    return ck.chol_solve_sample(S, rhs, z)
+
+
+def gram_rows(device):
+    """Phase 2, the Gram-fed entry: kernel vs plain version, and Gram-to-x
+    the earlier way beside the new."""
+    import torch
+    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.ops import chol_kernel as ck
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    beta = 2.0
+    lanes = TILE * len(VALS)
+    # (L, r, c, d, center, cells, timed)
+    cases = [(lanes, N, M, D, True, True, True),
+             (lanes, M, N, D, True, True, True),
+             (3, 301, 64, D, True, True, False)]
+    cases += [(5, 301, 64, d, ce, cl, False) for d in (1, 5, 20, 32)
+              for ce, cl in ((True, True), (False, False))]
+    cases += [(5, 301, 64, D, True, False, False),
+              (5, 301, 64, D, False, True, False)]
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        for L, r, c, d, with_center, with_cells, timed in cases:
+            def rand(*shape):
+                return torch.randn(*shape, generator=gen, dtype=dtype,
+                                   device=device)
+
+            density = 5000 / (N * M) if timed else 0.3
+            mask = (torch.rand(r, c, generator=gen, device=device)
+                    < density).to(dtype)
+            masked_r = mask * torch.randint(1, 6, (r, c), generator=gen,
+                                            device=device).to(dtype)
+            other = 0.5 * rand(L, c, d)
+            A = rand(L, d, d)
+            alpha = A @ A.mT / d + 0.5 * torch.eye(d, dtype=dtype,
+                                                   device=device)
+            mu, z = rand(L, d), rand(L, r, d)
+            center = 3 + 0.1 * rand(L) if with_center else None
+            cells = None
+            if with_cells:
+                row = torch.randint(0, r, (L,), generator=gen, device=device)
+                row[0] = r - 1  # the ragged last block
+                col = torch.randint(0, c, (L,), generator=gen, device=device)
+                dm = (torch.arange(L, device=device) % 2).to(dtype)
+                cells = (row, col, dm, rand(L))
+            Gt, mrt = bpmf_gibbs._gram_products(mask, masked_r, other)
+            args = (Gt, mrt, z, alpha, mu, beta, center, cells, other)
+            got = ck.chol_gram_solve_sample(*args)
+            want = ck.chol_gram_solve_sample(*args, kernel=False)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            scaled = (diff / (1 + want.abs())).max().item()
+            row_out = dict(entry="gram", dtype=name, L=L, r=r, c=c, d=d,
+                           center=with_center, cells=with_cells,
+                           max_abs_err=diff.max().item(), scaled_err=scaled,
+                           tol=KERNEL_TOL[name])
+            if timed:
+                row_out["ms"] = cuda_ms(
+                    lambda: ck.chol_gram_solve_sample(*args), 20)
+                row_out["plain_ms"] = cuda_ms(
+                    lambda: ck.chol_gram_solve_sample(*args, kernel=False), 3)
+                row_out["device_ms"] = kernel_device_ms(
+                    lambda: ck.chol_gram_solve_sample(*args),
+                    "chol_gram_kernel")
+                p = d * (d + 1) // 2
+                row_out["bound_ms"], row_out["bound_by"] = bound_ms(
+                    (p + 4 * d) * z.element_size() * L * r,
+                    (d ** 3 / 3 + 2 * d ** 2 + 2 * p + 4 * d) * L * r, name)
+                # from the Gram products to x: earlier way, new, new, earlier
+                sr = (mask, masked_r, other, mu, alpha, beta, z)
+
+                def old():
+                    return sample_rows_assembled(ck, *sr, center, cells)
+
+                def new():
+                    return bpmf_gibbs._sample_rows(*sr, center=center,
+                                                   cells=cells)
+
+                both = (old().sub_(new()).abs_() / (1 + want.abs())).max()
+                t = [cuda_ms(f, 5) for f in (old, new, new, old)]
+                row_out.update(
+                    gram_to_x_assembled_ms=(t[0] + t[3]) / 2,
+                    gram_to_x_ms=(t[1] + t[2]) / 2,
+                    assembled_vs_gram_fed=both.item())
+                check(both.item() <= KERNEL_TOL[name],
+                      f"the two row-draw paths disagree: {row_out}")
+            rows.append(row_out)
+            print("kernel-check " + json.dumps(row_out), flush=True)
+            check(math.isfinite(scaled) and scaled <= KERNEL_TOL[name],
+                  f"Gram-fed kernel disagrees with plain version: {row_out}")
+            del Gt, mrt, args, got, want, diff, z, other, mask, masked_r
+            torch.cuda.empty_cache()
+    return rows
+
+
 def mask_and_r_bytes(rated, isz: int) -> int:
     """Bytes of the shared problem a PMF kernel must read: the mask once, R
     only where rated (the lanes' own cells take delta_v instead)."""
@@ -236,9 +364,17 @@ def value_grad_case(pk, R, rated, L, d, bf16, transposed, gen, time_it):
     else:
         fn = pk.pmf_batched_value_grad
     args = (U.to(io), V.to(io), R.to(io), rated, di, dj, dv, sig)
-    got = fn(*args, bf16=bf16)
+    # the rated cells indexed once, as a refit tile does
+    index = pk.rated_index(rated, R, bf16=bf16)
+    variants = dict(pk.pmf_value_grad_cuda.variants)
+    got = fn(*args, bf16=bf16, index=index)
+    variant = next(k for k, v in pk.pmf_value_grad_cuda.variants.items()
+                   if v != variants.get(k, 0))
     want = fn(*args, bf16=bf16, kernel=False)
+    again = fn(*args, bf16=bf16, index=index)
     torch.cuda.synchronize()
+    check(torch.equal(got[0], again[0]),
+          "the value is not bitwise the same over two runs")
     tol = VG_TOL[bf16 and transposed]
     val_err = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
     grad_err = max(((g.float() - w.float()).abs() / (1 + w.float().abs()))
@@ -247,19 +383,38 @@ def value_grad_case(pk, R, rated, L, d, bf16, transposed, gen, time_it):
                   for g, w in zip(got, want))
     row = dict(layout="L,d,rows" if transposed else "L,rows,d",
                dtype=str(io).split(".")[1], L=L, n=n, m=m, d=d,
-               max_abs_err=max_abs, val_rel_err=val_err,
+               factors_in=variant, max_abs_err=max_abs, val_rel_err=val_err,
                grad_scaled_err=grad_err, tol=tol)
     if time_it:
-        row["ms"] = cuda_ms(lambda: fn(*args, bf16=bf16), 20)
-        row["plain_ms"] = cuda_ms(lambda: fn(*args, bf16=bf16, kernel=False),
-                                  3)
+        # the kernel's wrapper (allocations, checks and the launch) against
+        # the plain version of the same function; then the public function,
+        # which adds the prior terms of the value with PyTorch ops; then the
+        # launch alone, by the profiler's device time
+        kw = dict(transposed=transposed, round_resid=bf16 and transposed,
+                  out_dtype=io if transposed else torch.float32, index=index)
+
+        def launch():
+            return pk.pmf_value_grad_cuda(*args, **kw)
+
+        rows_args = [x.mT.float() if transposed else x.float()
+                     for x in args[:2]] + [args[2].float(), *args[3:]]
+        row["ms"] = cuda_ms(launch, 20)
+        row["plain_ms"] = cuda_ms(lambda: pk.pmf_value_grad_plain(
+            *rows_args, round_resid=kw["round_resid"]), 3)
+        row["call_ms"] = cuda_ms(
+            lambda: fn(*args, bf16=bf16, index=index), 20)
+        row["plain_call_ms"] = cuda_ms(
+            lambda: fn(*args, bf16=bf16, kernel=False), 3)
+        row["device_ms"] = kernel_device_ms(launch, "value_grad")
         # what the data needs: the rated cells of every lane, plus the
-        # lane's own cell where it is not rated; 3 d multiply-adds a cell
-        cells = L * int(rated.sum()) + int((~rated[di, dj]).sum())
+        # lane's own cell where it is not rated; 3 d multiply-adds a cell.
+        # Bytes: the index (pointers, columns, R's values, rows, positions)
+        # once, the factors in, the gradients out, the lanes' cells and sums
+        cells = L * index.nnz + int((~rated[di, dj]).sum())
         isz = 2 if bf16 else 4
         osz = 2 if bf16 and transposed else 4
-        n_bytes = (mask_and_r_bytes(rated, isz)
-                   + L * (n + m) * d * (isz + osz) + L * 4 * 4)
+        n_bytes = ((n + m + 2) * 4 + index.nnz * (12 + isz)
+                   + L * (n + m) * d * (isz + osz) + L * (8 + 8 + 4 + 4))
         row["bound_ms"], row["bound_by"] = bound_ms(
             n_bytes, 6.0 * d * cells, row["dtype"])
     print("value-grad-check " + json.dumps(row), flush=True)
@@ -285,12 +440,22 @@ def value_grad_rows(device, R, rated):
         for bf16, tr in variants:
             rows.append(value_grad_case(pk, small_R, small_rated, 5, d, bf16,
                                         tr, gen, False))
+    check(all(r["factors_in"] == "shared" for r in rows),
+          "a case that fits shared memory took the global-memory variant")
+    # at d = 32 a lane's factors (336 KB) do not fit a block's shared memory:
+    # the same walk on the factors in global memory
+    for bf16, tr in ((False, False), (True, True)):
+        row = value_grad_case(pk, R, rated, 8, 32, bf16, tr, gen, True)
+        check(row["factors_in"] == "global",
+              f"d = 32 at full shape did not take the global variant: {row}")
+        rows.append(row)
     return rows
 
 
 def device_split(fn, top=8):
-    """torch.profiler over one call of ``fn``: wall ms, device-busy ms and
-    the ``top`` device kernels by their own device time."""
+    """torch.profiler over one call of ``fn``: wall ms, device-busy ms, the
+    ``top`` device kernels by their own device time, and how often the host
+    called ``aten::nonzero`` (the index build; it synchronises)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -308,10 +473,37 @@ def device_split(fn, top=8):
                       if e.device_type == DeviceType.CUDA),
                      key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
+    nonzero = sum(e.count for e in prof.key_averages()
+                  if e.key == "aten::nonzero")
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                busy_share=busy / wall_ms,
+                busy_share=busy / wall_ms, nonzero_calls=nonzero,
+                device_launches=sum(r[2] for r in kernels),
                 top=[dict(name=k[:80], ms=t, calls=c)
                      for k, t, c in kernels[:top]])
+
+
+def kernel_device_ms(fn, name_part: str, reps: int = 10) -> float:
+    """Mean device time in ms of the kernels whose name holds ``name_part``,
+    over ``reps`` calls of ``fn`` under torch.profiler: the launch alone,
+    without the host's share of the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name_part in e.key]
+    # the profiler may drop a launch at the window's edge: average over those
+    # it recorded
+    seen = sum(e.count for e in hits)
+    check(0 < seen <= reps,
+          f"profiler saw {[(e.key, e.count) for e in hits]} for {name_part}")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / seen
 
 
 def spearman(a, b) -> float:
@@ -473,6 +665,9 @@ def main() -> int:
     kern = kernel_rows(device)
     main_row = next(r for r in kern if r["dtype"] == "float32"
                     and r["B"] == 269120)
+    gram = gram_rows(device)
+    gram_row = next(r for r in gram if r["dtype"] == "float32"
+                    and r["r"] == M and r["L"] == TILE * len(VALS))
 
     # ---- 3. the f32 lookahead tile at the bench shape
     rng = np.random.default_rng(0)
@@ -503,6 +698,7 @@ def main() -> int:
             num_samps=LA_SAMPS, fit_budget=FIT_BUDGET, cand=cand,
             n_base_samples=BASE_SAMPS, poly_ls=True, chol_kernel=kernel)
 
+    ck.chol_gram_solve_sample_cuda.launches = 0
     ck.chol_solve_sample_batch_minor.launches = 0
     ck.chol_solve_sample_reference.calls = 0
     tile_s = []
@@ -513,19 +709,32 @@ def main() -> int:
         torch.cuda.synchronize()
         tile_s.append(time.perf_counter() - t0)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    la_launches = ck.chol_solve_sample_batch_minor.launches
+    la_launches = ck.chol_gram_solve_sample_cuda.launches
     check(scores.shape == (TILE,), f"scores shape {tuple(scores.shape)}")
     check(bool(torch.isfinite(scores).all()), f"non-finite scores {scores}")
     check(bool((scores > 0).all()), f"non-positive scores {scores}")
-    check(la_launches > 0, "the lookahead never launched the kernel")
+    # a tile: 30 rounds of 2 sweeps, a U and a V draw each, one launch a draw
+    draws = LA_SAMPS * gcfg.num_gibbs * 2
+    check(la_launches == 2 * draws,
+          f"two lookahead tiles launched the Gram-fed kernel {la_launches} "
+          f"times: want {draws} a tile")
+    check(ck.chol_solve_sample_batch_minor.launches == 0,
+          "the S-given entry ran on the CUDA main path")
     check(ck.chol_solve_sample_reference.calls == 0,
           "the plain version ran on the CUDA main path")
     print(json.dumps(dict(
         phase="lookahead_f32", lanes=TILE * len(VALS), tile_s=tile_s,
         candidates_per_s=TILE / tile_s[1], peak_mem_gib=peak_gib,
-        kernel_launches=la_launches,
+        kernel_launches=la_launches, launches_a_tile=draws,
         scores_min=scores.min().item(), scores_max=scores.max().item())),
         flush=True)
+
+    # where a warm tile spends its time (profiled apart from the timed tiles
+    # and from the launch counts above)
+    split = device_split(lambda: tile(pst, prob, stats), top=14)
+    ck.chol_gram_solve_sample_cuda.launches = la_launches
+    print(json.dumps(dict(phase="lookahead_tile_profile", **split)),
+          flush=True)
 
     # ---- 4. the active loop on a 64-cell pool
     q = np.flatnonzero(prob.queryable.cpu().numpy().ravel())
@@ -534,7 +743,7 @@ def main() -> int:
     pool = pool.reshape(N, M)
     prob_pool = types.problem_from_dense(real, known, queryable=pool,
                                          dtype=torch.float32, device=device)
-    before = ck.chol_solve_sample_batch_minor.launches
+    before = ck.chol_gram_solve_sample_cuda.launches
     t0 = time.perf_counter()
     res = run_active_gibbs(
         prob_pool, real, ["exp-variance"], latent_d=D, rating_values=VALS,
@@ -543,8 +752,8 @@ def main() -> int:
         verbose=True)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    loop_launches = ck.chol_solve_sample_batch_minor.launches - before
-    main_launches = ck.chol_solve_sample_batch_minor.launches
+    loop_launches = ck.chol_gram_solve_sample_cuda.launches - before
+    main_launches = ck.chol_gram_solve_sample_cuda.launches
     plain_calls = ck.chol_solve_sample_reference.calls
     recs = res["exp-variance"]
     picks = [r[2] for r in recs[1:]]
@@ -553,7 +762,9 @@ def main() -> int:
     check(len(set(picks)) == len(picks) and all(pool[p] for p in picks),
           f"picks {picks} not distinct or outside the pool")
     check(loop_launches > 0, "the active loop never launched the kernel")
-    check(plain_calls == 0, "the plain version ran on the CUDA main path")
+    check(plain_calls == 0
+          and ck.chol_solve_sample_batch_minor.launches == 0,
+          "the plain version or the S-given entry ran on the CUDA main path")
     print(json.dumps(dict(
         phase="active_loop_f32", records=len(recs), picks=picks,
         rmse=[r[1] for r in recs], loop_s=loop_s,
@@ -573,6 +784,9 @@ def main() -> int:
     s_kernel = tile(pst64, prob64, stats64, kernel=True)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
+    check(ck.chol_gram_solve_sample_cuda.launches == main_launches + draws
+          and ck.chol_solve_sample_reference.calls == 0,
+          "the f64 tile did not go through the Gram-fed kernel alone")
     t0 = time.perf_counter()
     s_plain = tile(pst64, prob64, stats64, kernel=False)
     torch.cuda.synchronize()
@@ -580,7 +794,8 @@ def main() -> int:
     rel = ((s_kernel - s_plain).abs() / s_plain.abs()).max().item()
     print(json.dumps(dict(
         phase="lookahead_f64_kernel_vs_plain", max_rel_diff=rel,
-        rtol=SCORE_RTOL_F64, tile_s_kernel=t_kernel, tile_s_plain=t_plain)),
+        rtol=SCORE_RTOL_F64, tile_s_kernel=t_kernel, tile_s_plain=t_plain,
+        plain_calls=ck.chol_solve_sample_reference.calls)),
         flush=True)
     check(bool(torch.isfinite(s_kernel).all()), "non-finite f64 scores")
     check(rel <= SCORE_RTOL_F64, f"f64 kernel vs plain scores differ by {rel}")
@@ -607,8 +822,24 @@ def main() -> int:
         return torch.cat([refit(s, lane_block=PK_LANE_BLOCK, block_rows=256,
                                 bf16=bf16) for s in tiles])
 
+    # every refit from here on is counted, to hold the index to one build a
+    # fit_lookahead_batch call
+    inner_fit, fit_calls = pmf.fit_lookahead_batch, [0]
+
+    def counted_fit(*a, **kw):
+        fit_calls[0] += 1
+        return inner_fit(*a, **kw)
+
+    pmf.fit_lookahead_batch = counted_fit
+
+    def index_builds_per_refit(since):
+        """(index builds, refits) since the counts ``since``."""
+        return (pk.rated_index.calls - since[0], fit_calls[0] - since[1])
+
     pk.pmf_value_grad_cuda.launches.clear()
+    pk.pmf_value_grad_cuda.variants.clear()
     pk.pmf_value_grad_plain.calls = 0
+    since = (pk.rated_index.calls, fit_calls[0])
     refit_rate, refit_f = {}, {}
     for bf16 in (True, False):
         sweep(bf16)  # warm
@@ -618,8 +849,13 @@ def main() -> int:
         torch.cuda.synchronize()
         refit_rate[bf16] = PK_N_CAND / (time.perf_counter() - t0)
     refit_launches = dict(pk.pmf_value_grad_cuda.launches)
+    refit_index = index_builds_per_refit(since)
     check(pk.pmf_value_grad_plain.calls == 0,
           "the plain value+grad version ran on the refit path")
+    check(refit_index[0] == refit_index[1] == 4 * len(tiles),
+          f"index builds and refits of the sweeps: {refit_index}")
+    check(pk.pmf_value_grad_cuda.variants["global"] == 0,
+          "a refit tile left its factors in global memory")
     for bf16 in (True, False):
         check(bool(torch.isfinite(refit_f[bf16]).all()),
               f"non-finite refit values (bf16={bf16})")
@@ -639,6 +875,7 @@ def main() -> int:
         candidates_per_s_bf16=refit_rate[True],
         candidates_per_s_f32=refit_rate[False],
         kernel_launches={"/".join(k): v for k, v in refit_launches.items()},
+        index_builds=refit_index[0], refits=refit_index[1],
         f32_kernel_vs_plain_max_rel=rel.max().item(), rtol=REFIT_RTOL,
         bf16_vs_f32_max_rel=float(np.max(np.abs(f16 - f32) / np.abs(f32))),
         bf16_vs_f32_spearman=spearman(f16, f32))), flush=True)
@@ -678,6 +915,7 @@ def main() -> int:
     add_rmse_boosts.tile_rmses, pmf.adaptive_descent = timed_tile, descent
     pk.pmf_value_grad_cuda.launches.clear()
     pk.pmf_value_grad_plain.calls = 0
+    since = (pk.rated_index.calls, fit_calls[0])
     try:
         t0 = time.perf_counter()
         add_rmse_boosts.main(["--load-data", str(data_path), "-D", str(D),
@@ -688,6 +926,7 @@ def main() -> int:
         pmf.adaptive_descent = inner_descent
     cli_launches = dict(pk.pmf_value_grad_cuda.launches)
     cli_plain = pk.pmf_value_grad_plain.calls
+    cli_index = index_builds_per_refit(since)
     with open(out_path, "rb") as f:
         res = pickle.load(f)
     boosts = res["boosts"]
@@ -695,6 +934,7 @@ def main() -> int:
         phase="add_rmse_boosts_cli", pool=CLI_POOL, tile=CLI_TILE,
         cli_s=cli_s, tiles=tile_log, base_rmse=res["base_rmse"],
         kernel_launches={"/".join(k): v for k, v in cli_launches.items()},
+        index_builds=cli_index[0], refits=cli_index[1],
         boost_mean=float(np.nanmean(boosts)),
         boost_max=float(np.nanmax(boosts)))), flush=True)
     check(set(res) == {"_real", "base_rmse", "boosts"}, f"keys {set(res)}")
@@ -704,6 +944,13 @@ def main() -> int:
     check(cli_launches.get(("L,rows,d", "torch.float32"), 0) > 0,
           "the CLI never launched the (L, rows, d) kernel")
     check(cli_plain == 0, "the plain value+grad version ran in the CLI")
+    check(cli_index[0] == cli_index[1] == CLI_POOL // CLI_TILE,
+          f"index builds and refit tiles of the CLI: {cli_index}")
+    # one launch an evaluation: the init, each proposal, and the final
+    # re-evaluations of the loop
+    check(cli_launches[("L,rows,d", "torch.float32")]
+          <= sum(t["proposals"] + 4 for t in tile_log),
+          f"more launches than evaluations: {cli_launches}, {tile_log}")
     # where a CLI-shaped refit tile spends its time: 128 lanes at their true
     # values, up to the CLI's 200 steps, the (L, rows, d) kernel
     ti, tj = di[tiles[0]], dj[tiles[0]]
@@ -711,6 +958,9 @@ def main() -> int:
     split = device_split(lambda: pmf.fit_lookahead_batch(
         rst, prob, ti, tj, tv, rcfg, max_steps=200))
     print(json.dumps(dict(phase="refit_tile_profile", **split)), flush=True)
+    check(split["nonzero_calls"] == 1,
+          f"the profiled tile called nonzero {split['nonzero_calls']} times: "
+          "want the one index build, none in the proposal loop")
 
     # ---- 9. line-coefficient kernel vs plain version
     sig = torch.stack([rst.sigma_sq, rst.sigma_u_sq, rst.sigma_v_sq])
@@ -727,6 +977,7 @@ def main() -> int:
     pk.pmf_value_grad_cuda.launches.clear()
     pk.pmf_line_coeffs_cuda.launches.clear()
     pk.pmf_value_grad_plain.calls = pk.pmf_line_coeffs_plain.calls = 0
+    since = (pk.rated_index.calls, fit_calls[0])
     poly_runs = []
     poly_f = {}
     for bf16 in (True, False):
@@ -744,6 +995,9 @@ def main() -> int:
                 b2_launches=launch_total(pk.pmf_value_grad_cuda) - b2,
                 b3_launches=launch_total(pk.pmf_line_coeffs_cuda) - b3))
     poly_launches = dict(pk.pmf_line_coeffs_cuda.launches)
+    poly_index = index_builds_per_refit(since)
+    check(poly_index[0] == poly_index[1] == 8 * len(tiles),
+          f"index builds and refits of the poly sweeps: {poly_index}")
     check(pk.pmf_value_grad_plain.calls == 0
           and pk.pmf_line_coeffs_plain.calls == 0,
           "a plain version ran on the poly-LS refit path")
@@ -968,20 +1222,29 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None}
 
+    # the S-given entry's bound: S's lower triangle, b, z in and x out
     chol_bound = bound_ms(
         (D * (D + 1) // 2 + 3 * D) * 4 * main_row["B"],
         (D ** 3 / 3 + 2 * D ** 2) * main_row["B"], "float32")
     b4 = "amf_tpu/ops/pallas_kernels.py:39"
     b2 = "amf_tpu/ops/pallas_kernels.py:194"
     print(json.dumps({"kernels": [{
-        "name": "chol_solve_sample", "route": "cuda",
+        # the entry the main path calls, fed from the Gram (160 lanes x 1682
+        # rows); the S-given entry of the same source, which no main path
+        # calls any more, rides along under its own keys
+        "name": "chol_solve_sample (Gram-fed)", "route": "cuda",
         "source": "amf_tpu_torch/csrc/chol_solve_sample.cu",
         "replaces": "amf_tpu/ops/chol_kernel.py:41",
         "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kern),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": chol_bound[0], "bound_by": chol_bound[1],
+        "max_abs_err": max(r["max_abs_err"] for r in gram),
+        **{k: gram_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "gram_to_x_ms", "gram_to_x_assembled_ms")},
         "library_ms": None,
+        "s_given_entry": {
+            "max_abs_err": max(r["max_abs_err"] for r in kern),
+            "ms": main_row["ms"], "launch_only_ms": main_row["launch_only_ms"],
+            "plain_ms": main_row["plain_ms"], "bound_ms": chol_bound[0],
+            "bound_by": chol_bound[1]},
     },
         vg_entry("L,rows,d", "float32", b4,
                  cli_launches[("L,rows,d", "torch.float32")]),

@@ -160,6 +160,54 @@ def test_sample_rows_matches_jax_with_its_draws(case):
                                    rtol=RTOL)
 
 
+def test_gram_products_are_the_packed_masked_gram():
+    """Gt holds each row's lower-triangle Gram, packed row by row, then
+    mask @ other; mrt holds (mask * ratings) @ other; rows minor."""
+    rng = np.random.default_rng(11)
+    L, r, c, d = 3, 7, 9, 4
+    mask = _t((rng.random((r, c)) < 0.5).astype(float))
+    masked_r = mask * _t(rng.integers(1, 6, (r, c)).astype(float))
+    other = _t(rng.normal(size=(L, c, d)))
+    Gt, mrt = tbg._gram_products(mask, masked_r, other)
+    p = d * (d + 1) // 2
+    assert Gt.shape == (L, p + d, r) and mrt.shape == (L, d, r)
+    assert Gt.is_contiguous() and mrt.is_contiguous()
+    full = torch.einsum("ij,lja,ljb->liab", mask, other, other)
+    q = 0
+    for a in range(d):
+        for b in range(a + 1):
+            np.testing.assert_allclose(Gt[:, q].numpy(),
+                                       full[:, :, a, b].numpy(), rtol=1e-12,
+                                       atol=1e-12)
+            q += 1
+    np.testing.assert_allclose(Gt[:, p:].numpy(),
+                               (mask @ other).mT.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(mrt.numpy(), (masked_r @ other).mT.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_sample_rows_takes_strided_noise_and_expanded_factors(case):
+    """The chain hands z as a slice of one round's draws and, before the
+    first sweep, factors expanded over lanes: same draws as from copies."""
+    tprob, tst = case["tprob"], case["tst"]
+    cfg = tbg.GibbsConfig(latent_d=2)
+    gens = lane_generators(3, [0, 1, 2], 1, "cpu")
+    noise = tbg.draw_round_noise(gens, 6, 5, cfg, torch.float64, "cpu")
+    z = noise.z_u[1]
+    assert not z.is_contiguous()
+    other = tst.V.expand(3, 5, 2)
+    mask = tprob.rated.double()
+    alpha = torch.eye(2, dtype=torch.float64).expand(3, 2, 2)
+    mu = torch.zeros(3, 2, dtype=torch.float64)
+    args = (mask, mask * tprob.R_obs)
+    got = tbg._sample_rows(*args, other, mu, alpha, 2.0, z)
+    want = tbg._sample_rows(*args, other.contiguous(), mu, alpha.contiguous(),
+                            2.0, z.contiguous())
+    assert got.shape == (3, 6, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_gibbs_round_matches_jax_with_its_draws(case):
     jprob, jst, gcfg, tprob = case["jprob"], case["jst"], case["gcfg"], case["tprob"]
     q = np.argwhere(np.asarray(jprob.queryable))[[1, 3]]

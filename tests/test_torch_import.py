@@ -20,6 +20,7 @@ SLICE = [
     "amf_tpu_torch.models.bpmf_gibbs", "amf_tpu_torch.active.driver",
     "amf_tpu_torch.active.gibbs_loop", "amf_tpu_torch.run.bayes_pmf",
     "amf_tpu_torch.ops.pmf_kernels", "amf_tpu_torch.run.add_rmse_boosts",
+    "amf_tpu_torch.ops.probe_kernels",
 ]
 
 
