@@ -15,27 +15,47 @@
 // (`T`); every product and sum is float. The caller assembles the quartic's
 // coefficients c1..c4 from these four sums and the directions' norms.
 //
-// What bounds it on this card: all four sums involve only the rated cells
-// and the lane's own cell (E, mask P1 and mask P2 are 0 elsewhere), so the
-// kernel does the products only there: ~8 d multiply-adds a cell, ~0.4 MFLOP
-// a lane at the MovieLens-100k shape (943 x 1682, d = 10, ~5,000 rated
-// cells). It is bound by the bytes it streams: the mask (1 byte a cell)
-// once, R where rated, and the factors and directions once. R and the mask
-// are shared by all lanes and stay in the 50 MB L2.
+// What bounds it on this card: all four sums are sums over the rated cells
+// and the lane's own cell (E, mask P1 and mask P2 are 0 elsewhere): ~8 d
+// multiply-adds a cell, ~0.4 MFLOP a lane at the MovieLens-100k shape
+// (943 x 1682, d = 10, ~5,000 rated cells), against 2 (943 + 1682) d factor
+// and direction values in. Bytes bound it, and below them the latency of one
+// lane's staging and walk.
 // What the design does about it:
-//   * one pass over the rows: one warp per (lane, row); its 32 threads walk
-//     the row's columns side by side, so the mask, R, V and Gv reads are
-//     coalesced. The row's U and Gu columns sit in registers. Each thread
-//     keeps four partial sums, and a butterfly of warp shuffles adds them
-//     in a fixed order; the row's four totals go to a (L, n, 4) scratch;
-//   * no column pass: the kernel returns scalars only;
-//   * a second, small launch sums the rows of each lane in a fixed order.
-//     No atomics: the sums are the same bit for bit from run to run, so the
-//     line search's accept test on the quartic cannot change between runs;
+//   * it walks the caller's index of the rated cells (built once a refit, the
+//     one the value+gradient kernel walks), never the dense mask or R;
+//   * the four sums are sums over cells, so one pass over one side is
+//     enough. The kernel is written for a "walked" side, a thread a row of
+//     it with that row's factor and direction in registers (read coalesced
+//     from the (L, d, rows) layout), and a "gathered" side, whose factor and
+//     direction the block first copies into shared memory as float, rows at
+//     an odd stride, so that the walk's gathers at random rows meet no bank
+//     conflicts and never leave the SM. P1's two terms swap under an
+//     exchange of the sides and the sums do not change, so the caller picks
+//     the sides: it gathers the shorter one (the rows, by CSC, at 943 x 1682:
+//     83 KB of shared memory at d = 10 against 148 KB for the columns);
+//   * one launch, one block a lane, no scratch: each thread's four partial
+//     sums are added through warp shuffles and then over the warps in a
+//     fixed order. No atomics: the sums are the same bit for bit from run to
+//     run, so the line search's accept test on the quartic cannot change
+//     between runs;
+//   * the lane's own cell is one more iteration of the walk's loop body: it
+//     replaces the rated value when the cell is rated, and is one more cell
+//     after its row's rated cells when not; a cell outside the problem is
+//     ignored;
 //   * d (<= 32) is bucketed to 8, 16 or 32 at compile time.
+// A thread a walked row suits sparse data like the refit tiles measured so
+// far (~3 rated cells a column, ~5 a row); at the density of the full
+// MovieLens-100k ratings (~60 a column, up to several hundred) the rows are
+// unbalanced and a warp a row would serve better. A row's cells are summed
+// in index order by one thread whichever it is, so that order would not
+// change. Where the gathered side does not fit the 227 KB a block may have
+// (943 rows at d = 32), the caller picks the variant that runs the same walk
+// on the factors in global memory (they sit in L2).
 //
-// C interface (loaded with ctypes): amf_pmf_line_coeffs(...), at the bottom
-// of this file. Returns the cudaError_t of the launches (0 on success).
+// C interface (loaded with ctypes): amf_pmf_line_coeffs(...),
+// amf_pmf_line_coeffs_smem_bytes(...) and amf_pmf_line_coeffs_smem_limit(),
+// at the bottom of this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,140 +63,184 @@
 
 namespace {
 
-constexpr int kRowWarps = 8;      // rows of one lane per block
-constexpr int kSumThreads = 256;  // threads of the final sum, one block a lane
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 struct Args {
-  const void* Ut;        // (L, d, n)
-  const void* Vt;        // (L, d, m)
-  const void* Gut;       // (L, d, n)
-  const void* Gvt;       // (L, d, m)
-  const void* R;         // (n, m) row-major
-  const uint8_t* mask;   // (n, m) row-major, 0 or 1
-  const int32_t* di;     // (L,)
-  const int32_t* dj;     // (L,)
-  const float* dv;       // (L,)
-  float* row_part;       // (L, n, 4) scratch
-  float* acc;            // (L, 4): a2, a11, a12, a22
-  int64_t n, m;
+  const void* X;           // (L, d, rows_w) factor of the walked side
+  const void* GX;          // (L, d, rows_w) its direction
+  const void* Y;           // (L, d, rows_g) factor of the gathered side
+  const void* GY;          // (L, d, rows_g) its direction
+  const int32_t* ptr;      // (rows_w + 1,) the walked side's cell pointers
+  const int32_t* idx;      // (nnz,) gathered-side row of each cell
+  const void* r;           // (nnz,) R of each cell, type T
+  const int64_t* cell_w;   // (L,) the lane's cell: its walked-side row
+  const int64_t* cell_g;   // (L,) and its gathered-side row
+  const float* dv;         // (L,)
+  float* acc;              // (L, 4): a2, a11, a12, a22
+  int64_t rows_w, rows_g;
   int d;
 };
 
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kRowWarps * 32) coeff_rows(Args a) {
-  const int warp = threadIdx.x >> 5;
-  const int tid = threadIdx.x & 31;
-  const int64_t i = (int64_t)blockIdx.x * kRowWarps + warp;
-  const int64_t l = blockIdx.y;
-  if (i >= a.n) return;  // the whole warp leaves together
+// floats of shared memory: the warps' partial sums and, with the gathered
+// side in shared memory, its factor and direction
+inline int64_t smem_floats(int64_t rows_g, int d, bool shared) {
+  return 4 * kWarps + (shared ? 2 * rows_g * (d | 1) : 0);
+}
 
-  const int64_t nd = a.n * a.d, md = a.m * a.d;
-  const T* U = (const T*)a.Ut + l * nd + i;
-  const T* GU = (const T*)a.Gut + l * nd + i;
-  const T* V = (const T*)a.Vt + l * md;
-  const T* GV = (const T*)a.Gvt + l * md;
-  const T* R = (const T*)a.R + i * a.m;
-  const uint8_t* M = a.mask + i * a.m;
-  const int64_t hit_j = a.di[l] == i ? (int64_t)a.dj[l] : -1;
-  const float hit_v = a.dv[l];
+template <typename T, int DMAX, bool kShared>
+__global__ void __launch_bounds__(kThreads) line_coeffs(Args a) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int d = a.d, ds = a.d | 1;
+  const int64_t l = blockIdx.x;
+  const int64_t nw = a.rows_w, ng = a.rows_g;
+  float* red = smem;               // (4, kWarps)
+  float* s_y = smem + 4 * kWarps;  // (ng, ds)
+  float* s_gy = s_y + ng * ds;     // (ng, ds)
 
-  float u[DMAX], gu[DMAX];
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    u[k] = k < a.d ? to_f(U[k * a.n]) : 0.0f;
-    gu[k] = k < a.d ? to_f(GU[k * a.n]) : 0.0f;
-  }
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // a2, a11, a12, a22
-  for (int64_t j = tid; j < a.m; j += 32) {
-    const bool hit = j == hit_j;
-    if (!(M[j] || hit)) continue;  // every term is 0 off the rated cells
-    const float r = hit ? hit_v : to_f(R[j]);
-    float pred = 0.0f, p1a = 0.0f, p1b = 0.0f, p2 = 0.0f;
-#pragma unroll
-    for (int k = 0; k < DMAX; ++k) {
-      if (k < a.d) {
-        const float v = to_f(V[k * a.m + j]);
-        const float gv = to_f(GV[k * a.m + j]);
-        pred = fmaf(u[k], v, pred);
-        p1a = fmaf(gu[k], v, p1a);
-        p1b = fmaf(u[k], gv, p1b);
-        p2 = fmaf(gu[k], gv, p2);
+  const T* X = (const T*)a.X + l * nw * d;
+  const T* GX = (const T*)a.GX + l * nw * d;
+  const T* Y = (const T*)a.Y + l * ng * d;
+  const T* GY = (const T*)a.GY + l * ng * d;
+  if (kShared) {
+    // neighbouring threads, neighbouring addresses; the odd row stride
+    // spreads a warp's 32 rows over the 32 banks
+    for (int k = 0; k < d; ++k) {
+      for (int64_t i = tid; i < ng; i += kThreads) {
+        s_y[i * ds + k] = to_f(Y[k * ng + i]);
+        s_gy[i * ds + k] = to_f(GY[k * ng + i]);
       }
     }
-    const float e = r - pred;
-    const float p1 = p1a + p1b;
-    s[0] = fmaf(e, p2, s[0]);
-    s[1] = fmaf(p1, p1, s[1]);
-    s[2] = fmaf(p1, p2, s[2]);
-    s[3] = fmaf(p2, p2, s[3]);
+    __syncthreads();
   }
-  // butterfly: a + b == b + a, so every thread ends with the same totals
+  const T* r = (const T*)a.r;
+  const int64_t cw = a.cell_w[l], cg = a.cell_g[l];
+  const float dv = a.dv[l];
+  const bool cell_ok = cw >= 0 && cw < nw && cg >= 0 && cg < ng;
+
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // a2, a11, a12, a22
+  for (int64_t w = tid; w < nw; w += kThreads) {
+    float x[DMAX], gx[DMAX];
+#pragma unroll
+    for (int k = 0; k < DMAX; ++k) {
+      x[k] = k < d ? to_f(X[k * nw + w]) : 0.0f;
+      gx[k] = k < d ? to_f(GX[k * nw + w]) : 0.0f;
+    }
+    const bool mine = cell_ok && w == cw;
+    bool found = false;
+    const int end = a.ptr[w + 1];
+    for (int e = a.ptr[w]; e <= end; ++e) {
+      int64_t g;
+      float rv;
+      if (e < end) {
+        g = a.idx[e];
+        const bool hit = mine && g == cg;
+        found |= hit;
+        rv = hit ? dv : to_f(r[e]);
+      } else {  // after the rated cells: the lane's cell, not rated
+        if (!mine || found) break;
+        g = cg;
+        rv = dv;
+      }
+      float pred = 0.0f, p1a = 0.0f, p1b = 0.0f, p2 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < DMAX; ++k) {
+        if (k < d) {
+          const float y = kShared ? s_y[g * ds + k] : to_f(Y[k * ng + g]);
+          const float gy = kShared ? s_gy[g * ds + k] : to_f(GY[k * ng + g]);
+          pred = fmaf(x[k], y, pred);
+          p1a = fmaf(gx[k], y, p1a);
+          p1b = fmaf(x[k], gy, p1b);
+          p2 = fmaf(gx[k], gy, p2);
+        }
+      }
+      const float err = rv - pred;
+      const float p1 = p1a + p1b;
+      s[0] = fmaf(err, p2, s[0]);
+      s[1] = fmaf(p1, p1, s[1]);
+      s[2] = fmaf(p1, p2, s[2]);
+      s[3] = fmaf(p2, p2, s[3]);
+    }
+  }
+  // butterfly: a + b == b + a, so every thread of a warp ends with the same
+  // totals; then the warps' totals in order
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) s[q] += __shfl_xor_sync(0xffffffffu, s[q], off);
   }
-  if (tid == 0) {
+  if ((tid & 31) == 0) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) a.row_part[(l * a.n + i) * 4 + q] = s[q];
+    for (int q = 0; q < 4; ++q) red[q * kWarps + (tid >> 5)] = s[q];
   }
-}
-
-// acc[l, q] = sum over rows of row_part[l, :, q], in a fixed order.
-__global__ void __launch_bounds__(kSumThreads) sum_rows(Args a) {
-  __shared__ float part[4][kSumThreads];
-  const int64_t l = blockIdx.x;
-  const float* rp = a.row_part + l * a.n * 4;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int64_t i = threadIdx.x; i < a.n; i += kSumThreads)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) s[q] += rp[i * 4 + q];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) part[q][threadIdx.x] = s[q];
   __syncthreads();
-  for (int w = kSumThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) part[q][threadIdx.x] += part[q][threadIdx.x + w];
-    __syncthreads();
+  if (tid < 4) {
+    float t = 0.0f;
+    for (int w = 0; w < kWarps; ++w) t += red[tid * kWarps + w];
+    a.acc[l * 4 + tid] = t;
   }
-  if (threadIdx.x < 4) a.acc[l * 4 + threadIdx.x] = part[threadIdx.x][0];
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kShared>
 cudaError_t launch(const Args& a, int64_t L, cudaStream_t stream) {
-  const dim3 grid((unsigned)((a.n + kRowWarps - 1) / kRowWarps), (unsigned)L);
-  coeff_rows<T, DMAX><<<grid, kRowWarps * 32, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_rows<<<(unsigned)L, kSumThreads, 0, stream>>>(a);
+  const int64_t bytes = 4 * smem_floats(a.rows_g, a.d, kShared);
+  if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = line_coeffs<T, DMAX, kShared>;
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  kernel<<<(unsigned)L, kThreads, (size_t)bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t by_width(const Args& a, int64_t L, cudaStream_t stream) {
-  if (a.d <= 8) return launch<T, 8>(a, L, stream);
-  if (a.d <= 16) return launch<T, 16>(a, L, stream);
-  return launch<T, 32>(a, L, stream);
+cudaError_t by_width(const Args& a, int64_t L, bool shared, cudaStream_t s) {
+#define AMF_WIDTH(DMAX)                                    \
+  return shared ? launch<T, DMAX, true>(a, L, s)           \
+                : launch<T, DMAX, false>(a, L, s)
+  if (a.d <= 8) AMF_WIDTH(8);
+  if (a.d <= 16) AMF_WIDTH(16);
+  AMF_WIDTH(32);
+#undef AMF_WIDTH
 }
 
 }  // namespace
 
-// in_bf16: 0 when Ut, Vt, Gut, Gvt and R are float, 1 when bf16.
+// Bytes of shared memory a block of the shared-memory variant needs; the
+// caller takes that variant when they are at most
+// amf_pmf_line_coeffs_smem_limit().
+extern "C" long long amf_pmf_line_coeffs_smem_bytes(long long rows_g, int d) {
+  return 4 * smem_floats(rows_g, d, true);
+}
+
+extern "C" long long amf_pmf_line_coeffs_smem_limit() { return kSmemLimit; }
+
+// in_bf16: 0 when the factors, directions and r are float, 1 when bf16.
+// shared: 1 keeps the gathered side in shared memory (it must fit), 0 leaves
+// it in global memory. (X, GX) are the walked side's factor and direction,
+// (Y, GY) the gathered side's; ptr, idx and r are the index's cells by the
+// walked side (CSR to walk the rows, CSC to walk the columns).
 extern "C" int amf_pmf_line_coeffs(
-    int in_bf16, const void* Ut, const void* Vt, const void* Gut,
-    const void* Gvt, const void* R, const uint8_t* mask, const int32_t* di,
-    const int32_t* dj, const float* dv, float* row_part, float* acc,
-    long long L, long long n, long long m, int d, void* stream) {
-  if (L < 1 || L > 65535 || n < 1 || m < 1 || d < 1 || d > 32 ||
-      (n + kRowWarps - 1) / kRowWarps > 0x7fffffffLL)
+    int in_bf16, int shared, const void* X, const void* GX, const void* Y,
+    const void* GY, const int32_t* ptr, const int32_t* idx, const void* r,
+    const int64_t* cell_w, const int64_t* cell_g, const float* dv, float* acc,
+    long long L, long long rows_w, long long rows_g, int d, void* stream) {
+  if (L < 1 || L > 0x7fffffffLL || rows_w < 1 || rows_g < 1 ||
+      rows_w > 0x7fffffffLL / 33 || rows_g > 0x7fffffffLL / 33 || d < 1 ||
+      d > 32)
     return (int)cudaErrorInvalidValue;
-  Args a{Ut, Vt, Gut, Gvt, R, mask, di, dj, dv, row_part, acc,
-         (int64_t)n, (int64_t)m, d};
+  Args a{X, GX, Y, GY, ptr, idx, r, cell_w, cell_g, dv, acc,
+         (int64_t)rows_w, (int64_t)rows_g, d};
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_bf16) return (int)by_width<__nv_bfloat16>(a, (int64_t)L, s);
-  return (int)by_width<float>(a, (int64_t)L, s);
+  if (in_bf16) return (int)by_width<__nv_bfloat16>(a, (int64_t)L, shared != 0, s);
+  return (int)by_width<float>(a, (int64_t)L, shared != 0, s);
 }

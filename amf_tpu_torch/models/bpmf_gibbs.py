@@ -69,6 +69,27 @@ def init_chain(pmf_state: pmf.PMFState) -> ChainState:
 # Wishart / Gaussian-Wishart sampling
 
 
+def _nan_where_failed(out: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    """``out`` (..., d, d) of a ``torch.linalg.*_ex`` call, NaN where its
+    ``info`` reports a failed factorisation. ``jnp.linalg.cholesky`` gives
+    NaN there, and NaN is what reaches the scores and the finite-score
+    fallback of ``active/driver.py``; the ``_ex`` calls alone return
+    unchecked values.
+    Decided on the device: the host does not wait for ``info``."""
+    return torch.where((info > 0)[..., None, None], torch.nan, out)
+
+
+def _cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of A (..., d, d); NaN where A is not positive
+    definite."""
+    return _nan_where_failed(*torch.linalg.cholesky_ex(A))
+
+
+def _inverse(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of A (..., d, d); NaN where A is singular."""
+    return _nan_where_failed(*torch.linalg.inv_ex(A))
+
+
 def _dof_shape(d: int, dof, like: torch.Tensor) -> torch.Tensor:
     """Gamma shape parameters (dof - k) / 2, k < d, of the Bartlett chi^2s."""
     return (dof - torch.arange(d, dtype=like.dtype, device=like.device)) / 2.0
@@ -94,7 +115,7 @@ def sample_wishart(
     if normal is None:
         normal = torch.randn(sigma.shape, generator=generator,
                              dtype=sigma.dtype, device=sigma.device)
-    chol = torch.linalg.cholesky_ex(sigma).L
+    chol = _cholesky(sigma)
     a = torch.diag_embed(torch.sqrt(2.0 * gamma)) + torch.tril(normal, -1)
     X = chol @ a
     return X @ X.mT
@@ -118,17 +139,16 @@ def sample_hyperparam(
 
     eye = torch.eye(d, dtype=feats.dtype, device=feats.device)
     # mu0 = 0, so mu0 - x_bar = -x_bar and its outer product is x_bar x_bar^T
-    WI_post = torch.linalg.inv_ex(
+    WI_post = _inverse(
         eye + N * S_bar
         + (cfg.b0 * N) / (cfg.b0 + N) * (x_bar[..., :, None] * x_bar[..., None, :])
-    ).inverse
+    )
     WI_post = (WI_post + WI_post.mT) / 2
 
     alpha = sample_wishart(WI_post, d + N, generator=generator, gamma=gamma,
                            normal=normal_w)
     mu_temp = (N * x_bar) / (cfg.b0 + N)
-    lam = torch.linalg.cholesky_ex(
-        torch.linalg.inv_ex((cfg.b0 + N) * alpha).inverse).L
+    lam = _cholesky(_inverse((cfg.b0 + N) * alpha))
     if normal_mu is None:
         normal_mu = torch.randn(x_bar.shape, generator=generator,
                                 dtype=feats.dtype, device=feats.device)

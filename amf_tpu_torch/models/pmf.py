@@ -361,7 +361,7 @@ def fit_lookahead_batch(
     if poly_ls:
         U, V, f, _ = _poly_epochs(
             lambda U, V: fn(U, V, *args, **vg_kw),
-            lambda *uvg: pk.pmf_line_coeffs_t(*uvg, *args, **kw),
+            lambda *uvg: pk.pmf_line_coeffs_t(*uvg, *args, **vg_kw),
             U0, V0, cfg, max_steps)
     else:
         def value_and_grad_fn(uv):

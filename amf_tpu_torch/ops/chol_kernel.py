@@ -28,9 +28,10 @@ substitutions, as the JAX reference has; the two differ only in rounding.
 with tensor operations and calls it.
 
 Dispatch (both): a CPU tensor goes to the plain version. A CUDA tensor goes
-to the kernel, in float32 or float64, for d <= 32; d > 32 raises.
-``kernel=False`` sends a CUDA tensor to the plain version on purpose, to
-compare the two on the same inputs.
+to the kernel, in float32 or float64, for d <= 32; d > 32 raises there (the
+JAX dispatcher sends it to its plain version; here only a CPU tensor takes
+the plain version, at any d). ``kernel=False`` sends a CUDA tensor to the
+plain version on purpose, to compare the two on the same inputs.
 """
 
 from __future__ import annotations
@@ -150,7 +151,8 @@ def chol_solve_sample(
     """x = S^{-1} rhs + chol(S)^{-T} z for SPD S (..., d, d), rhs, z (..., d).
 
     A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
-    kernel, or to the plain version when ``kernel`` is False.
+    kernel (d <= 32, else it raises), or to the plain version when
+    ``kernel`` is False.
     """
     if S.device.type == "cpu" or (S.device.type == "cuda" and not kernel):
         return chol_solve_sample_reference(S, rhs, z)
@@ -316,7 +318,8 @@ def chol_gram_solve_sample(
     only then.
 
     A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
-    kernel, or to the plain version when ``kernel`` is False.
+    kernel (d <= 32, else it raises), or to the plain version when
+    ``kernel`` is False.
     """
     if Gt.device.type == "cpu" or (Gt.device.type == "cuda" and not kernel):
         fn = chol_gram_solve_sample_reference

@@ -3,10 +3,13 @@
 Each kernel source ``amf_tpu_torch/csrc/<name>.cu`` exports a plain C
 interface. At first use it is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library under ``build/amf_tpu_torch/`` at the checkout root
-and loaded with ``ctypes``. The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. The build writes to a temporary file and renames it into
-place, so concurrent first uses cannot load a half-written library.
+and loaded with ``ctypes``. A source may be built for one value of a
+parameter at a time (``defines``, as the fused line search is for its
+factor width): each set of defines is a library of its own. The library's
+file name carries a hash of the source and the flags, so an edited source
+is rebuilt and a stale library is never loaded. The build writes to a
+temporary file and renames it into place, so concurrent first uses cannot
+load a half-written library.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "amf_tpu_torch"
@@ -39,25 +43,31 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` with ``defines``
+    (``"NAME=value"`` each) lives."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(_flags(defines)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc_path(), *_flags(defines), "-o", tmp,
+               str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(
@@ -72,6 +82,6 @@ def build(name: str) -> Path:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build(name, defines)))

@@ -22,8 +22,8 @@ accept/reject ascent. Its kernels mirror ``amf_tpu/ops/pallas_kernels.py``:
     (U + a Gu, V + a Gv) (``pmf_line_coeffs_t``, ``csrc/pmf_line_coeffs.cu``):
     the kernel gives the masked reductions a2 = <E, P2>, a11 = <mP1, P1>,
     a12 = <mP1, P2>, a22 = <mP2, P2> with P1 = Gu V^T + U Gv^T and
-    P2 = Gu Gv^T; the wrapper assembles c1..c4 from them and from the
-    gradients' norms;
+    P2 = Gu Gv^T, by one walk of the same index; the wrapper assembles
+    c1..c4 from them and from the gradients' norms;
   * the whole line search of every lane in one launch
     (``pmf_lookahead_fused_t``, ``csrc/pmf_lookahead_fused.cu``), on the
     same index.
@@ -37,10 +37,12 @@ each lane's factors and gradients in the streaming dtype, forms proposals
 in float32 and rounds them to bf16 for the products only. The prior terms
 come from the caller's factors, or from the float32 proposal.
 
-Dispatch: a CPU tensor goes to the plain version. A CUDA tensor goes to the
-kernel, or raises; ``kernel=False`` sends it to the plain version on
-purpose, to compare the two. ``block_rows`` and ``lanes_per_block`` are the
-JAX signatures' TPU tiling; they are accepted and change nothing.
+Dispatch: a CPU tensor goes to the plain version, at any d. A CUDA tensor
+goes to the kernel, or raises: the CUDA kernels keep a row of d values in
+registers and take d <= 32 (the JAX kernels take any d). ``kernel=False``
+sends a CUDA tensor to the plain version on purpose, to compare the two.
+``block_rows`` and ``lanes_per_block`` are the JAX signatures' TPU tiling;
+they are accepted and change nothing.
 """
 
 from __future__ import annotations
@@ -62,18 +64,33 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "pmf_value_grad": [_I] * 4 + [_P] * 16 + [_LL] * 4 + [_I] + [_LL] * 6
     + [_P],
-    "pmf_line_coeffs": [_I] + [_P] * 11 + [_LL] * 3 + [_I] + [_P],
-    "pmf_lookahead_fused": [_I] + [_P] * 23 + [_LL] * 3 + [_I] * 2 + [_P],
+    "pmf_line_coeffs": [_I] * 2 + [_P] * 11 + [_LL] * 3 + [_I] + [_P],
+    "pmf_lookahead_fused": [_I] * 2 + [_P] * 20 + [_LL] * 4 + [_I] * 2 + [_P],
+}
+# and of its ``amf_<source>_smem_bytes``, the shape of a lane
+_SHAPE_ARGTYPES = {
+    "pmf_value_grad": [_LL] * 3 + [_I],  # n, m, nnz, d
+    "pmf_line_coeffs": [_LL, _I],  # rows of the gathered side, d
+    "pmf_lookahead_fused": [_LL] * 3,  # n, m, nnz
 }
 
 
+def fused_defines(d: int) -> Tuple[str, ...]:
+    """The defines of ``csrc/pmf_lookahead_fused.cu``'s library for factor
+    width d: the source is built for one width at a time, so that a row of
+    d values is a register array of exactly d (the other sources bucket d
+    to 8, 16 or 32 and pay for the bucket's unused slots)."""
+    return (f"AMF_D={d}",)
+
+
 @functools.cache
-def _entry_point(source: str = "pmf_value_grad"):
+def _entry_point(source: str = "pmf_value_grad",
+                 defines: Tuple[str, ...] = ()):
     """The C function of kernel library ``csrc/<source>.cu`` (built at
-    first use)."""
+    first use, with ``defines``)."""
     from amf_tpu_torch.ops import cuda_build
 
-    fn = getattr(cuda_build.load(source), "amf_" + source)
+    fn = getattr(cuda_build.load(source, defines), "amf_" + source)
     fn.argtypes = _ARGTYPES[source]
     fn.restype = ctypes.c_int
     return fn
@@ -290,7 +307,7 @@ def pmf_value_grad_cuda(
     gv = torch.empty(V.shape, dtype=out_dtype, device=dev)
     sqerr = torch.empty((L,), dtype=_F32, device=dev)
     fn = _entry_point()
-    shared = _fits_shared(n, m, ix.nnz, d)
+    shared = _fits_shared("pmf_value_grad", n, m, ix.nnz, d)
     scratch = None if shared else torch.empty((L, ix.nnz + 1), dtype=_F32,
                                               device=dev)
     # element strides (lane, row, k) of each contiguous factor
@@ -320,18 +337,20 @@ pmf_value_grad_cuda.variants = collections.Counter()
 
 
 @functools.cache
-def _fits_shared(n: int, m: int, nnz: int, d: int) -> bool:
-    """Whether a lane's factors and residuals fit the shared memory a block
-    may take: the library's ``amf_pmf_value_grad_smem_bytes(n, m, nnz, d)``
-    against its ``amf_pmf_value_grad_smem_limit()``."""
+def _fits_shared(source: str, *shape: int,
+                 defines: Tuple[str, ...] = ()) -> bool:
+    """Whether what a block of ``csrc/<source>.cu`` keeps in shared memory
+    for a lane of this shape fits: the library's
+    ``amf_<source>_smem_bytes(*shape)`` against its
+    ``amf_<source>_smem_limit()``."""
     from amf_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("pmf_value_grad")
-    need, limit = (lib.amf_pmf_value_grad_smem_bytes,
-                   lib.amf_pmf_value_grad_smem_limit)
-    need.argtypes, limit.argtypes = [_LL] * 3 + [_I], []
+    lib = cuda_build.load(source, defines)
+    need = getattr(lib, f"amf_{source}_smem_bytes")
+    limit = getattr(lib, f"amf_{source}_smem_limit")
+    need.argtypes, limit.argtypes = _SHAPE_ARGTYPES[source], []
     need.restype = limit.restype = _LL
-    return need(n, m, nnz, d) <= limit()
+    return need(*shape) <= limit()
 
 
 def _value_grad(U, V, R, rated, delta_i, delta_j, delta_v, sigmas, *,
@@ -424,14 +443,34 @@ def pmf_line_coeffs_plain(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
 pmf_line_coeffs_plain.calls = 0
 
 
+def line_coeff_sides(ix: RatedIndex, Ut, Vt, Gut, Gvt, delta_i, delta_j):
+    """How the line-coefficient kernel takes a problem: ((X, GX), (Y, GY),
+    ptr, idx, r, cell_w, cell_g), a walked side, a thread a row of it, and
+    a gathered side, copied to shared memory. The four sums do not change
+    when the sides swap, so the shorter side is gathered (less to stage,
+    and it fits where the longer would not): the rows, walked by column
+    (CSC), where n <= m, else the columns, walked by row (CSR)."""
+    if ix.shape[0] <= ix.shape[1]:
+        return ((Vt, Gvt), (Ut, Gut), ix.col_ptr, ix.row_idx, ix.r_col,
+                delta_j, delta_i)
+    return ((Ut, Gut), (Vt, Gvt), ix.row_ptr, ix.col_idx, ix.r_row,
+            delta_i, delta_j)
+
+
 def pmf_line_coeffs_cuda(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
-                         delta_v) -> torch.Tensor:
+                         delta_v, index: Optional[RatedIndex] = None
+                         ) -> torch.Tensor:
     """Launch the CUDA kernel -> (L, 4) float32 [a2, a11, a12, a22].
 
-    Ut, Gut (L, d, n), Vt, Gvt (L, d, m) and R (n, m) on one CUDA device in
-    one dtype, float32 or bfloat16; 1 <= d <= 32. Every product and sum is
-    float32. The launch goes on the current stream and does not
-    synchronise. ``launches`` counts launches by input dtype.
+    Ut, Gut (L, d, n), Vt, Gvt (L, d, m) on one CUDA device in one dtype,
+    float32 or bfloat16; 1 <= d <= 32. The kernel walks ``index``, the
+    rated cells of (``rated``, R) in that dtype, and reads neither the mask
+    nor R; without an index it is built here, which synchronises the host.
+    Every product and sum is float32. The gathered side's factor and
+    direction go to shared memory where they fit a block, else they stay in
+    global memory (``variants`` counts both). One launch on the current
+    stream, no synchronisation, no scratch: only the (L, 4) result is
+    allocated. ``launches`` counts launches by input dtype.
     """
     L, d, n = Ut.shape
     m = Vt.shape[2]
@@ -445,43 +484,46 @@ def pmf_line_coeffs_cuda(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
     dev = _check_cuda("pmf_line_coeffs", Ut, Vt, Gut, Gvt, R, rated,
                       delta_i, delta_j, delta_v)
     if Ut.dtype not in (_F32, _BF16) or any(
-            x.dtype != Ut.dtype for x in (Vt, Gut, Gvt, R)):
-        raise TypeError("want Ut, Vt, Gut, Gvt, R in one dtype, float32 or "
+            x.dtype != Ut.dtype for x in (Vt, Gut, Gvt)):
+        raise TypeError("want Ut, Vt, Gut, Gvt in one dtype, float32 or "
                         "bfloat16")
     if not 1 <= d <= MAX_D:
         raise ValueError(f"pmf_line_coeffs kernel takes 1 <= d <= {MAX_D}; "
                          f"got d={d}")
-    if not (1 <= L <= 65535 and n >= 1 and m >= 1):
-        raise ValueError(f"pmf_line_coeffs kernel takes 1 <= L <= 65535 "
-                         f"lanes and n, m >= 1; got L={L}, n={n}, m={m}")
-    Ut, Vt, Gut, Gvt, R = (x.contiguous() for x in (Ut, Vt, Gut, Gvt, R))
-    mask = rated.to(torch.bool).contiguous().view(torch.uint8)
-    di = delta_i.to(torch.int32).contiguous()
-    dj = delta_j.to(torch.int32).contiguous()
+    if not (L >= 1 and n >= 1 and m >= 1):
+        raise ValueError(f"pmf_line_coeffs kernel takes L, n, m >= 1; got "
+                         f"L={L}, n={n}, m={m}")
+    ix = _index_for(index, rated, R, Ut.dtype)
+    Ut, Vt, Gut, Gvt = (x.contiguous() for x in (Ut, Vt, Gut, Gvt))
+    walked, gathered, ptr, idx, r, cell_w, cell_g = line_coeff_sides(
+        ix, Ut, Vt, Gut, Gvt, delta_i.long().contiguous(),
+        delta_j.long().contiguous())
+    rows_w, rows_g = walked[0].shape[2], gathered[0].shape[2]
     dv = delta_v.to(_F32).contiguous()
-    row_part = torch.empty((L, n, 4), dtype=_F32, device=dev)
+    shared = _fits_shared("pmf_line_coeffs", rows_g, d)
     acc = torch.empty((L, 4), dtype=_F32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _entry_point("pmf_line_coeffs")(
-        int(Ut.dtype == _BF16), Ut.data_ptr(), Vt.data_ptr(), Gut.data_ptr(),
-        Gvt.data_ptr(), R.data_ptr(), mask.data_ptr(), di.data_ptr(),
-        dj.data_ptr(), dv.data_ptr(), row_part.data_ptr(), acc.data_ptr(),
-        L, n, m, d, stream)
+        int(Ut.dtype == _BF16), int(shared), *(x.data_ptr() for x in (
+            *walked, *gathered, ptr, idx, r, cell_w, cell_g, dv, acc)),
+        L, rows_w, rows_g, d, stream)
     if err:
         raise RuntimeError(f"pmf_line_coeffs kernel launch failed: CUDA "
                            f"error {err} (L={L}, n={n}, m={m}, d={d}, "
-                           f"{Ut.dtype})")
+                           f"{Ut.dtype}, shared={shared})")
     pmf_line_coeffs_cuda.launches[str(Ut.dtype)] += 1
+    pmf_line_coeffs_cuda.variants["shared" if shared else "global"] += 1
     return acc
 
 
 pmf_line_coeffs_cuda.launches = collections.Counter()
+pmf_line_coeffs_cuda.variants = collections.Counter()
 
 
 def pmf_line_coeffs_t(
     Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j, delta_v, sigmas,
     block_rows: int = 256, lanes_per_block: int = 8, bf16: bool = True,
-    kernel: bool = True,
+    kernel: bool = True, index: Optional[RatedIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Improvement-quartic coefficients (c1, c2, c3, c4), each (L,), of
 
@@ -493,16 +535,18 @@ def pmf_line_coeffs_t(
     reductions come from the kernel (with ``bf16`` from bf16-rounded R and
     factors, float32 sums); c1 = |Gu|^2 + |Gv|^2 and the prior term b2 come
     from the float32 cast of the given directions, not from the cancelling
-    difference a1/s - <U, Gu>/su - <V, Gv>/sv.
+    difference a1/s - <U, Gu>/su - <V, Gv>/sv. ``index`` as in
+    ``pmf_batched_value_grad``.
     """
     del block_rows, lanes_per_block  # the TPU's tiling (module docstring)
     io = _BF16 if bf16 else _F32
-    ins = [x.to(io) for x in (Ut, Vt, Gut, Gvt, R)]
+    ins = [x.to(io) for x in (Ut, Vt, Gut, Gvt)]
     args = (rated, delta_i, delta_j, delta_v)
     if _use_kernel(Ut, kernel, "pmf_line_coeffs"):
-        acc = pmf_line_coeffs_cuda(*ins, *args)
+        acc = pmf_line_coeffs_cuda(*ins, R, *args, index=index)
     else:
-        acc = pmf_line_coeffs_plain(*(x.to(_F32) for x in ins), *args)
+        acc = pmf_line_coeffs_plain(*(x.to(_F32) for x in ins),
+                                    R.to(io).to(_F32), *args)
     a2, a11, a12, a22 = acc.unbind(1)
     gu, gv = Gut.to(_F32), Gvt.to(_F32)
     s, s_u, s_v = sigmas.to(_F32)
@@ -519,9 +563,10 @@ def pmf_line_coeffs_t(
 def pmf_lookahead_fused_plain(
     Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
     max_steps: int, bf16: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of the kernel -> (f (L,) float32, Ut (L, d, n),
-    Vt (L, d, m) in the streaming dtype, evaluations (L,) int32).
+    Vt (L, d, m) in the streaming dtype, evaluations (L,) int32, accepted
+    proposals (L,) int32).
 
     Every lane starts at (Ut0, Vt0) (d, rows), rounded to the streaming
     dtype, and runs the adaptive accept/reject ascent with
@@ -563,6 +608,7 @@ def pmf_lookahead_fused_plain(
     lr = lr0.expand(L).clone()
     done = torch.zeros(L, dtype=torch.bool, device=f.device)
     evals = torch.ones(L, dtype=torch.int32, device=f.device)
+    accepts = torch.zeros(L, dtype=torch.int32, device=f.device)
     for step in range(max_steps):
         if step % CHECK_EVERY == 0 and bool(done.all()):
             break
@@ -580,7 +626,8 @@ def pmf_lookahead_fused_plain(
         lr = torch.where(active, torch.where(accept, lr * 1.25, lr * 0.5), lr)
         done = done | (active & conv)
         evals += active
-    return f, state[0].mT, state[1].mT, evals
+        accepts += accept
+    return f, state[0].mT, state[1].mT, evals, accepts
 
 
 pmf_lookahead_fused_plain.calls = 0
@@ -589,19 +636,24 @@ pmf_lookahead_fused_plain.calls = 0
 def pmf_lookahead_fused_cuda(
     Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
     max_steps: int, bf16: bool, index: Optional[RatedIndex] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel -> (f (L,) float32, Ut (L, d, n), Vt (L, d, m)
-    in the streaming dtype, evaluations (L,) int32); the contract of
-    ``pmf_lookahead_fused_plain``.
+    in the streaming dtype, evaluations (L,) int32, accepted proposals (L,)
+    int32); the contract of ``pmf_lookahead_fused_plain``.
 
     Ut0 (d, n), Vt0 (d, m), R and ``rated`` (n, m) on one CUDA device;
     1 <= d <= 32; every lane's cell inside the problem. The kernel walks
-    ``index`` (``rated_index`` of the problem in the streaming dtype, by
-    row and by column); without one it is built here. One thread block
-    runs one lane's whole line search. The launch goes on the current
-    stream and does not synchronise, but checking the cells and indexing
-    the mask do.
-    ``launches`` counts launches by streaming dtype.
+    ``index`` (``rated_index`` of the problem in the streaming dtype);
+    without one it is built here. The kernel's library is built for this d
+    at first use (``fused_defines``). One thread block runs one lane's whole
+    line search, on two sets of (L, d, rows) state buffers allocated here
+    (set 0 comes back as the result). The proposal's factors and the
+    residuals go to shared memory where they fit a block, else the factors
+    are gathered from global memory and the residuals take an
+    (L, nnz + 1) scratch (``variants`` counts both). The launch goes on the
+    current stream and does not synchronise, but checking the cells (and
+    indexing the mask, without ``index``) does. ``launches`` counts launches
+    by streaming dtype.
     """
     d, n = Ut0.shape
     m = Vt0.shape[1]
@@ -616,46 +668,51 @@ def pmf_lookahead_fused_cuda(
     if not 1 <= d <= MAX_D:
         raise ValueError(f"pmf_lookahead_fused kernel takes 1 <= d <= "
                          f"{MAX_D}; got d={d}")
-    if not (1 <= L <= 65535 and n >= 1 and m >= 1 and max_steps >= 0):
-        raise ValueError(f"pmf_lookahead_fused kernel takes 1 <= L <= 65535 "
-                         f"lanes, n, m >= 1 and max_steps >= 0; got L={L}, "
-                         f"n={n}, m={m}, max_steps={max_steps}")
+    if not (L >= 1 and n >= 1 and m >= 1 and max_steps >= 0):
+        raise ValueError(f"pmf_lookahead_fused kernel takes L, n, m >= 1 "
+                         f"and max_steps >= 0; got L={L}, n={n}, m={m}, "
+                         f"max_steps={max_steps}")
     if bool(((delta_i < 0) | (delta_i >= n) | (delta_j < 0)
              | (delta_j >= m)).any()):
         raise ValueError(f"pmf_lookahead_fused: a lane's cell lies outside "
                          f"the {n} x {m} problem")
     io = _BF16 if bf16 else _F32
     ix = _index_for(index, rated, R, io)
-    u0 = Ut0.to(io).mT.contiguous()
-    v0 = Vt0.to(io).mT.contiguous()
+    u0, v0 = Ut0.to(io).contiguous(), Vt0.to(io).contiguous()
     di = delta_i.to(torch.int32).contiguous()
     dj = delta_j.to(torch.int32).contiguous()
     dv = delta_v.to(_F32).contiguous()
     sig = sigmas.to(_F32).contiguous()
     ls = ls_params.to(_F32).contiguous()
-    # per-lane state (the outputs) and float32 proposal temporaries, each
-    # (L, rows, d)
-    u, gu = (torch.empty((L, n, d), dtype=io, device=dev) for _ in "ab")
-    v, gv = (torch.empty((L, m, d), dtype=io, device=dev) for _ in "ab")
-    up, gup = (torch.empty((L, n, d), dtype=_F32, device=dev) for _ in "ab")
-    vp, gvp = (torch.empty((L, m, d), dtype=_F32, device=dev) for _ in "ab")
+    # both sets of every lane's factors and gradients, (d, rows) a lane
+    u, gu = (torch.empty((2, L, d, n), dtype=io, device=dev) for _ in "ab")
+    v, gv = (torch.empty((2, L, d, m), dtype=io, device=dev) for _ in "ab")
     f = torch.empty((L,), dtype=_F32, device=dev)
-    evals = torch.empty((L,), dtype=torch.int32, device=dev)
+    # evaluations and accepted proposals of every lane
+    counts = torch.empty((L, 2), dtype=torch.int32, device=dev)
+    defines = fused_defines(d)
+    shared = _fits_shared("pmf_lookahead_fused", n, m, ix.nnz,
+                          defines=defines)
+    scratch = None if shared else torch.empty((L, ix.nnz + 1), dtype=_F32,
+                                              device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry_point("pmf_lookahead_fused")(
-        int(bf16), *(x.data_ptr() for x in (
+    err = _entry_point("pmf_lookahead_fused", defines)(
+        int(bf16), int(shared), *(x.data_ptr() for x in (
             u0, v0, ix.row_ptr, ix.col_idx, ix.r_row, ix.col_ptr, ix.row_idx,
-            ix.r_col, di, dj, dv, sig, ls, u, v, gu, gv, up, vp, gup, gvp, f,
-            evals)),
-        L, n, m, d, int(max_steps), stream)
+            ix.csc_pos, di, dj, dv, sig, ls, u, v, gu, gv)),
+        0 if shared else scratch.data_ptr(), f.data_ptr(), counts.data_ptr(),
+        L, n, m, ix.nnz, d, int(max_steps), stream)
     if err:
         raise RuntimeError(f"pmf_lookahead_fused kernel launch failed: CUDA "
-                           f"error {err} (L={L}, n={n}, m={m}, d={d}, {io})")
+                           f"error {err} (L={L}, n={n}, m={m}, d={d}, {io}, "
+                           f"shared={shared})")
     pmf_lookahead_fused_cuda.launches[str(io)] += 1
-    return f, u.mT, v.mT, evals
+    pmf_lookahead_fused_cuda.variants["shared" if shared else "global"] += 1
+    return f, u[0], v[0], counts[:, 0], counts[:, 1]
 
 
 pmf_lookahead_fused_cuda.launches = collections.Counter()
+pmf_lookahead_fused_cuda.variants = collections.Counter()
 
 
 def pmf_lookahead_fused_t(
@@ -678,7 +735,7 @@ def pmf_lookahead_fused_t(
     args = (Ut0, Vt0, R, rated, delta_i, delta_j, delta_v, sigmas, ls_params,
             max_steps, bf16)
     if _use_kernel(Ut0, kernel, "pmf_lookahead_fused"):
-        f, Ut, Vt, _ = pmf_lookahead_fused_cuda(*args, index=index)
+        f, Ut, Vt, *_ = pmf_lookahead_fused_cuda(*args, index=index)
     else:
-        f, Ut, Vt, _ = pmf_lookahead_fused_plain(*args)
+        f, Ut, Vt, *_ = pmf_lookahead_fused_plain(*args)
     return f, Ut.to(_F32), Vt.to(_F32)

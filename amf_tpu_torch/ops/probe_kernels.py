@@ -1,11 +1,12 @@
 """Probe of the port's CUDA kernels on the card: what the compiler made of
-them, and how close the Cholesky kernel's launch can come to its bytes.
+them, how close the Cholesky kernel's launch can come to its bytes, and
+whether a longer queue of lanes hides the fused refit's slowest lane.
 
     python -m amf_tpu_torch.ops.probe_kernels [--out results.json]
 
-1. ``ptxas -v`` of ``csrc/pmf_value_grad.cu`` and ``csrc/chol_solve_sample.cu``
-   as the package builds them: registers a thread, spills and static shared
-   memory of every instantiation.
+1. ``ptxas -v`` of every source of ``csrc/`` as the package builds it:
+   registers a thread, spills and static shared memory of every
+   instantiation.
 2. ``csrc/chol_solve_sample.cu`` at d = 10 only, built once per (threads a
    block, minimum blocks an SM, z and x staged through shared memory or
    not) setting with its copy-only twins
@@ -17,6 +18,13 @@ them, and how close the Cholesky kernel's launch can come to its bytes.
    stores, no factorisation), the Gram-fed entry, and its copy-only twin;
    the last two also at 1696 rows a lane, where every stream of a lane is
    128-byte aligned.
+3. The fused refit (``pmf_lookahead_fused_cuda``) at the MovieLens-100k
+   shape of ``chip_smoke.py`` and the ``add_rmse_boosts`` CLI's values
+   (1,024 candidate cells at their true ratings, 200 steps, float32): one
+   launch of 1,024 lanes beside 8 launches of 128, in turns, with each
+   queue's evaluations. A launch ends with its slowest lane; with more
+   lanes than SMs a finished lane's SM takes the next lane. A figure only:
+   the tile width is the caller's.
 
 Prints one JSON line per result; needs a CUDA card and nvcc.
 """
@@ -36,6 +44,8 @@ import torch
 
 from amf_tpu_torch.ops import cuda_build
 
+SOURCES = ("pmf_value_grad", "chol_solve_sample", "pmf_line_coeffs",
+           "pmf_lookahead_fused")
 L, R, D = 160, 1682, 10
 P = D * (D + 1) // 2
 R_ALIGNED = 1696  # the next multiple of 32 rows: every stream 128-byte aligned
@@ -78,7 +88,11 @@ def ptxas(source: str, defines=(), out=None):
 
 
 def summary(source: str):
-    rows = ptxas(source)
+    from amf_tpu_torch.ops import pmf_kernels as pk
+
+    # the fused line search is built for one factor width a library
+    fused = source == "pmf_lookahead_fused"
+    rows = ptxas(source, pk.fused_defines(D) if fused else ())
     spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
     return dict(source=source, kernels=len(rows),
                 registers_min=min(r["registers"] for r in rows),
@@ -86,7 +100,8 @@ def summary(source: str):
                 spilled=[(r["kernel"][-40:], r["registers"],
                           r["spill_stores"]) for r in spilled][:12],
                 d10_f32=[r for r in rows
-                         if re.search(r"(kernelIfLi10ELb0E|Li16ELi512)",
+                         if re.search(r"(kernelIfLi10ELb0E|Li16ELi512|"
+                                      r"line_coeffsIfLi16E|fusedIf)",
                                       r["kernel"])][:8])
 
 
@@ -174,6 +189,65 @@ def chol_setting(setting, out, rows, bufs, aligned):
     return res
 
 
+def fused_workload(dev, lanes=1024, steps=200):
+    """The fused refit at the shape of ``chip_smoke.py`` and the CLI's
+    values -> run(lanes' slice) giving the launcher's outputs."""
+    import numpy as np
+
+    from amf_tpu_torch import types
+    from amf_tpu_torch.data.synthetic import make_fake_data
+    from amf_tpu_torch.models import pmf
+    from amf_tpu_torch.ops import pmf_kernels as pk
+    from amf_tpu_torch.utils.rng import generator
+
+    n, m = 943, R
+    real, known, _ = make_fake_data(
+        num_users=n, num_items=m, rank=D, noise=0.5,
+        mask_type=0.05 * 100000 / (n * m), rng=np.random.default_rng(0))
+    real = np.clip(np.round(real - real.mean() + 3.0), 1.0, 5.0)
+    prob = types.problem_from_dense(real, known, dtype=torch.float32,
+                                    device=dev)
+    cfg = pmf.PMFConfig(latent_d=D, max_fit_steps=200)
+    st = pmf.init_state(generator(7, dev), n, m, cfg, prob,
+                        dtype=torch.float32, device=dev)
+    st, _ = pmf.fit(st, prob, cfg)
+    cand = torch.nonzero(prob.queryable.flatten())[:lanes, 0]
+    di, dj = cand // m, cand % m
+    dv = torch.as_tensor(real, dtype=torch.float32, device=dev)[di, dj]
+    sig = torch.stack([st.sigma_sq, st.sigma_u_sq, st.sigma_v_sq])
+    ls = torch.tensor([cfg.learning_rate, cfg.stop_thresh,
+                       cfg.min_learning_rate], device=dev)
+    index = pk.rated_index(prob.rated, prob.R_obs)
+    base = (st.U.mT.contiguous(), st.V.mT.contiguous(), prob.R_obs,
+            prob.rated)
+
+    def run(s):
+        return pk.pmf_lookahead_fused_cuda(*base, di[s], dj[s], dv[s], sig,
+                                           ls, steps, False, index=index)
+
+    return run
+
+
+def fused_queue(run, lanes=1024, tile=128):
+    """One fused-refit launch of ``lanes`` lanes beside ``lanes / tile``
+    launches of ``tile``: ms of each, in turns."""
+    tiles = [slice(c, c + tile) for c in range(0, lanes, tile)]
+
+    def one():
+        return run(slice(0, lanes))[3]
+
+    def many():
+        return torch.cat([run(s)[3] for s in tiles])
+
+    same = torch.equal(one(), many())
+    t = [cuda_ms(f, 3) for f in (one, many, many, one)]
+    evals = one().view(len(tiles), tile)
+    return dict(lanes=lanes, tile=tile, one_launch_ms=(t[0] + t[3]) / 2,
+                tiled_launches_ms=(t[1] + t[2]) / 2, same_evaluations=same,
+                evals_total=int(evals.sum()), evals_max=int(evals.max()),
+                evals_max_by_tile=evals.max(dim=1).values.tolist())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the results here")
@@ -210,8 +284,7 @@ def main(argv=None) -> int:
         torch.empty(D, L * R, device=dev), Gt, rand(L, D, R), rand(L, R, D),
         alpha, rand(L, D), torch.empty(L, R, D, device=dev))
     with ThreadPoolExecutor(6) as pool:
-        futs = [pool.submit(summary, s)
-                for s in ("pmf_value_grad", "chol_solve_sample")]
+        futs = [pool.submit(summary, s) for s in SOURCES]
         # build every setting first (in parallel), then time one at a time
         builds = list(pool.map(build_setting, SETTINGS))
         for setting, (out, rows) in zip(SETTINGS, builds):
@@ -222,6 +295,8 @@ def main(argv=None) -> int:
             row = f.result()
             results["ptxas"].append(row)
             print("ptxas " + json.dumps(row), flush=True)
+    results["fused_queue"] = fused_queue(fused_workload(dev))
+    print("fused_queue " + json.dumps(results["fused_queue"]), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

@@ -55,7 +55,10 @@ def tile_rmses(
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--load-data", required=True)
-    parser.add_argument("--latent-d", "-D", type=int, default=5)
+    parser.add_argument("--latent-d", "-D", type=int, default=5,
+                        help="factor width; on the card the CUDA kernels take "
+                             "d <= 32 and a wider d raises (--device cpu "
+                             "runs any width)")
     parser.add_argument("--refit-steps", type=int, default=200)
     parser.add_argument("--tile", type=int, default=128)
     parser.add_argument("--seed", type=int, default=0)

@@ -29,7 +29,10 @@ def main(argv=None):
     from amf_tpu_torch.active.gibbs_loop import KEYS
 
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--latent-d", "-D", type=int, default=5)
+    parser.add_argument("--latent-d", "-D", type=int, default=5,
+                        help="factor width; on the card the CUDA kernels take "
+                             "d <= 32 and a wider d raises (--device cpu "
+                             "runs any width)")
     parser.add_argument("--steps", "-s", type=int, default=None)
     parser.add_argument("--discrete", action="store_true", default=None)
     parser.add_argument("--no-discrete", action="store_false", dest="discrete")

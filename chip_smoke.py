@@ -16,8 +16,9 @@ hand-written kernel of them against its plain PyTorch version on the card:
     python3 chip_smoke.py
 
 Phases (each raises on failure):
-  1. environment and kernel builds (one nvcc per source, in parallel, at
-     first use, into build/);
+  1. environment and kernel builds (one nvcc per library, in parallel, at
+     first use, into build/; the fused line search is one library a factor
+     width);
   2. Cholesky kernel vs plain version, both entry points: S given, at the
      main path's batch sizes and at other d; fed from the Gram, at the main
      path's two row draws (160 lanes, r = 943 and 1682), ragged and at
@@ -36,19 +37,28 @@ Phases (each raises on failure):
      f32, and the f32 kernel tile vs the plain refit;
   8. the add_rmse_boosts CLI on a 256-cell pool (2 tiles, 200 refit steps),
      and the profile of one such tile (one index build, no mask scan);
-  9. line-coefficient kernel vs plain version, f32 and bf16, at L=128 lanes
-     from the fitted refit state and its gradients, and at ragged shapes;
+  9. line-coefficient kernel vs plain version, f32 and bf16, on an index of
+     the rated cells built once: at L=128 lanes from the fitted refit state
+     and its gradients, at ragged shapes walked by row and by column with a
+     lane on a rated cell, and at d=32 at the full shape, where the
+     gathered side stays in global memory; the sums bit for bit over two
+     runs; wrapper, public call and device times;
  10. the poly-LS refit sweep (scripts/probe_poly_kernel.py's workload):
      1024 candidates, poly-LS and proposal loop side by side, bf16 and f32,
      and the f32 kernel tile vs the plain tile at the bench's values and at
      the CLI's true values (8, 40 and 200 steps), with the epochs each
      took;
  11. the fused refit: one 128-lane tile at 8 and 200 steps, f32 and bf16,
-     vs the unfused kernel path, and the kernel's own outputs (per lane the
-     evaluations, neg_ll and the factors) vs the plain version's.
+     vs the unfused kernel path (one index build a refit), and the kernel's
+     own outputs (per lane the evaluations, neg_ll and the factors) vs the
+     plain version's, bit for bit over two runs, with wrapper and device
+     times; its global-memory variant at d=32; and, as a figure, the rank
+     correlation of the float32 boosts of phase 8's pool against a float64
+     plain refit.
 The launch counts are reset before phases 3, 7, 8, 10 and 11 and read
 after phases 4, 7, 8, 10 and 11, before the comparisons with the plain
-versions; phases 7, 8 and 10 also count the index builds (one a refit). The line before the last is the kernels' JSON; the last line is
+versions; phases 7, 8 and 10 also count the index builds (one a refit).
+The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -111,8 +121,12 @@ FUSED_RTOL, FUSED_BF16_RTOL = 1e-4, 1e-2
 # <= 3.5e-8 on the factors: PERF.md, PR 4). Over the CLI's 200 steps in
 # float32, where lr grows 1.25x an accept, the gradients' last bits add up
 # in the factors (reading 3.4e-4) while neg_ll, at a flat optimum, moves by
-# their square: the factors get 1e-3 there.
-FUSED_KERNEL_TOL = dict(f=1e-4, factors=1e-4, factors_long=1e-3)
+# their square: the factors get 1e-3 there. From random factors far from
+# the optimum a bf16 state does move (at the fitted state no lane's does),
+# and a stored value near a rounding boundary may round the other way in
+# one of the two: one bf16 rounding, 2^-8.
+FUSED_KERNEL_TOL = dict(f=1e-4, factors=1e-4, factors_long=1e-3,
+                        factors_bf16_moving=2 ** -8)
 # where lanes reject steps in float32, near-tie accepts move with the
 # summation order (phases 10, 11): there at least this many of the 128
 # lanes must make the plain version's proposals (poly-LS, 40 steps) or
@@ -325,12 +339,6 @@ def gram_rows(device):
             del Gt, mrt, args, got, want, diff, z, other, mask, masked_r
             torch.cuda.empty_cache()
     return rows
-
-
-def mask_and_r_bytes(rated, isz: int) -> int:
-    """Bytes of the shared problem a PMF kernel must read: the mask once, R
-    only where rated (the lanes' own cells take delta_v instead)."""
-    return rated.numel() + int(rated.sum()) * isz
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: str):
@@ -550,33 +558,56 @@ def own_cells(rated, di, dj) -> int:
 
 def coeff_case(pk, args, bf16, time_it):
     """Line-coefficient kernel vs plain version on ``args`` (Ut, Vt, Gut,
-    Gvt, R, rated, di, dj, dv, sigmas)."""
+    Gvt, R, rated, di, dj, dv, sigmas), on an index built once."""
     import torch
 
     Ut, Vt, _, _, R, rated, di, dj = args[:8]
     L, d, n = Ut.shape
     m = Vt.shape[2]
     dtype = "bfloat16" if bf16 else "float32"
-    got = torch.stack(pk.pmf_line_coeffs_t(*args, bf16=bf16))
+    io = torch.bfloat16 if bf16 else torch.float32
+    index = pk.rated_index(rated, R, bf16=bf16)
+    builds = pk.rated_index.calls
+    variants = dict(pk.pmf_line_coeffs_cuda.variants)
+    got = torch.stack(pk.pmf_line_coeffs_t(*args, bf16=bf16, index=index))
+    variant = next(k for k, v in pk.pmf_line_coeffs_cuda.variants.items()
+                   if v != variants.get(k, 0))
     want = torch.stack(pk.pmf_line_coeffs_t(*args, bf16=bf16, kernel=False))
+    again = torch.stack(pk.pmf_line_coeffs_t(*args, bf16=bf16, index=index))
     torch.cuda.synchronize()
+    check(pk.rated_index.calls == builds,
+          "the line-coefficient kernel built an index of its own")
+    check(torch.equal(got, again),
+          "the coefficients are not bitwise the same over two runs")
     diff = (got - want).abs()
     scaled = (diff / (1 + want.abs())).max().item()
-    row = dict(dtype=dtype, L=L, n=n, m=m, d=d,
+    row = dict(dtype=dtype, L=L, n=n, m=m, d=d, factors_in=variant,
+               lanes_on_rated_cells=int(rated[di, dj].sum()),
                max_abs_err=diff.max().item(), scaled_err=scaled,
                tol=COEFF_TOL[dtype])
     if time_it:
-        row["ms"] = cuda_ms(lambda: pk.pmf_line_coeffs_t(*args, bf16=bf16),
-                            20)
+        # the kernel's wrapper (checks, the (L, 4) result and the launch);
+        # the public function, which adds the directions' norms with
+        # PyTorch ops (what earlier readings of this kernel timed); the
+        # launch alone by the profiler's device time
+        ins = [x.to(io) for x in args[:4]]
+
+        def launch():
+            return pk.pmf_line_coeffs_cuda(*ins, *args[4:9], index=index)
+
+        row["ms"] = cuda_ms(launch, 20)
+        row["call_ms"] = cuda_ms(
+            lambda: pk.pmf_line_coeffs_t(*args, bf16=bf16, index=index), 20)
         row["plain_ms"] = cuda_ms(
             lambda: pk.pmf_line_coeffs_t(*args, bf16=bf16, kernel=False), 3)
-        # the mask, R where rated, the factors and directions and the lanes'
-        # cells in once, 4 sums out; on each rated cell and lane cell pred
-        # (2d), P1 (4d), P2 (2d), 8 more
-        cells = L * int(rated.sum()) + own_cells(rated, di, dj)
+        row["device_ms"] = kernel_device_ms(launch, "line_coeffs")
+        # the index once (pointers, columns, R's values, rows, positions),
+        # the factors and directions and the lanes' cells in, 4 sums out; on
+        # each rated cell and lane cell pred (2d), P1 (4d), P2 (2d), 8 more
+        cells = L * index.nnz + own_cells(rated, di, dj)
         isz = 2 if bf16 else 4
-        n_bytes = (mask_and_r_bytes(rated, isz) + 2 * L * (n + m) * d * isz
-                   + L * (12 + 16))
+        n_bytes = ((n + m + 2) * 4 + index.nnz * (12 + isz)
+                   + 2 * L * (n + m) * d * isz + L * (8 + 8 + 4 + 16))
         row["bound_ms"], row["bound_by"] = bound_ms(
             n_bytes, (8 * d + 8) * cells, dtype)
     print("line-coeffs-check " + json.dumps(row), flush=True)
@@ -586,7 +617,10 @@ def coeff_case(pk, args, bf16, time_it):
 
 
 def coeff_rows(pk, rst, prob, di, dj, dv, sig, device):
-    """Phase 9: the refit state and its gradients at L=128, then ragged."""
+    """Phase 9: the refit state and its gradients at L=128; ragged shapes
+    that walk the rows (13 x 9: the 9 columns are gathered) and the columns
+    (9 x 13); d = 32 at the full shape, where the gathered side stays in
+    global memory. Lane 0 of every random case sits on a rated cell."""
     import torch
 
     L = PK_TILE
@@ -598,24 +632,41 @@ def coeff_rows(pk, rst, prob, di, dj, dv, sig, device):
         base = (prob.R_obs, prob.rated, di[:L], dj[:L], dv[:L], sig)
         _, Gut, Gvt = pk.pmf_batched_value_grad_t(Ut, Vt, *base, bf16=bf16)
         rows.append(coeff_case(pk, (Ut, Vt, Gut, Gvt, *base), bf16, True))
+    check(all(r["factors_in"] == "shared" for r in rows),
+          "the main path's shape took the global-memory variant")
     gen = torch.Generator(device=device).manual_seed(9)
+    csig = torch.tensor([0.8, 10.0, 7.0], device=device)
+
+    def random_case(L, n, m, d, R, rated, scale):
+        fac = [scale * torch.randn(L, d, k, generator=gen, device=device)
+               for k in (n, m, n, m)]
+        cdi = torch.randint(0, n, (L,), generator=gen, device=device)
+        cdj = torch.randint(0, m, (L,), generator=gen, device=device)
+        on = torch.nonzero(rated)[0]  # lane 0 on a rated cell
+        cdi[0], cdj[0] = on[0], on[1]
+        cdv = torch.randint(1, 6, (L,), generator=gen, device=device).float()
+        return (*fac, R, rated, cdi, cdj, cdv, csig)
+
     for d in (3, 16, 32):
-        for bf16 in (False, True):
-            L, n, m = 3, 13, 9
-            R = torch.randint(1, 6, (n, m), generator=gen,
-                              device=device).float()
-            rated = torch.rand(n, m, generator=gen, device=device) < 0.5
-            fac = [torch.randn(L, d, k, generator=gen, device=device)
-                   for k in (n, m, n, m)]
-            cdi = torch.randint(0, n, (L,), generator=gen, device=device)
-            cdj = torch.randint(0, m, (L,), generator=gen, device=device)
-            on = torch.nonzero(rated)[0]  # lane 0 on a rated cell
-            cdi[0], cdj[0] = on[0], on[1]
-            cdv = torch.randint(1, 6, (L,), generator=gen,
-                                device=device).float()
-            csig = torch.tensor([0.8, 10.0, 7.0], device=device)
-            rows.append(coeff_case(pk, (*fac, R, rated, cdi, cdj, cdv, csig),
-                                   bf16, False))
+        for n, m in ((13, 9), (9, 13)):
+            for bf16 in (False, True):
+                R = torch.randint(1, 6, (n, m), generator=gen,
+                                  device=device).float()
+                rated = torch.rand(n, m, generator=gen, device=device) < 0.5
+                row = coeff_case(pk, random_case(3, n, m, d, R, rated, 1.0),
+                                 bf16, False)
+                check(row["factors_in"] == "shared"
+                      and row["lanes_on_rated_cells"] >= 1, f"{row}")
+                rows.append(row)
+    # at d = 32 the 943 rows' factor and direction (249 KB) do not fit a
+    # block's shared memory: the same walk on them in global memory
+    for bf16 in (False, True):
+        row = coeff_case(pk, random_case(8, N, M, 32, prob.R_obs, prob.rated,
+                                         0.3), bf16, True)
+        check(row["factors_in"] == "global"
+              and row["lanes_on_rated_cells"] >= 1,
+              f"d = 32 at full shape did not take the global variant: {row}")
+        rows.append(row)
     return rows
 
 
@@ -653,13 +704,27 @@ def main() -> int:
           f"python {sys.version.split()[0]} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    pmf_sources = ["pmf_value_grad", "pmf_line_coeffs", "pmf_lookahead_fused"]
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
-        list(pool.map(cuda_build.build, ["chol_solve_sample", *pmf_sources]))
+    # one nvcc per library, all together; the fused line search is built
+    # for one factor width a library: the main paths' and phase 11's d = 32
+    libraries = [("chol_solve_sample", ()), ("pmf_value_grad", ()),
+                 ("pmf_line_coeffs", ()),
+                 *(("pmf_lookahead_fused", pk.fused_defines(d))
+                   for d in (D, 32))]
+    def build_s(lib):
+        cuda_build.build(*lib)
+        return round(time.perf_counter() - t0, 1)
+
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        each = list(pool.map(build_s, libraries))
     ck._entry_points()
-    for source in pmf_sources:
-        pk._entry_point(source)
-    print(f"kernel build+load s {time.perf_counter() - t0:.1f}", flush=True)
+    for lib in libraries[1:]:
+        pk._entry_point(*lib)
+    # a CLI run pays a library's seconds at its first use of a new source,
+    # the fused line search's at its first use of a new -D
+    print(f"kernel build+load s {time.perf_counter() - t0:.1f} (each nvcc, "
+          f"side by side: "
+          f"{dict(zip((' '.join((n, *d)) for n, d in libraries), each))})",
+          flush=True)
 
     # ---- 2. kernel vs plain version on the card
     kern = kernel_rows(device)
@@ -1088,7 +1153,9 @@ def main() -> int:
     # (lanes stop within a few steps) and at the CLI's (lanes run to the
     # step budget)
     pk.pmf_lookahead_fused_cuda.launches.clear()
+    pk.pmf_lookahead_fused_cuda.variants.clear()
     pk.pmf_lookahead_fused_plain.calls = 0
+    since = (pk.rated_index.calls, fit_calls[0])
     fused, fused_ms, n_calls = {}, {}, 0
     for vals in tile_vals:
         for steps in (8, FIT_BUDGET):
@@ -1099,9 +1166,16 @@ def main() -> int:
                                                     fused=True)))
                     n_calls += 1
     fused_launches = dict(pk.pmf_lookahead_fused_cuda.launches)
+    fused_variants = dict(pk.pmf_lookahead_fused_cuda.variants)
+    fused_index = index_builds_per_refit(since)
     check(sum(fused_launches.values()) == n_calls,
           f"{n_calls} fused refits launched {fused_launches}: want one "
           "launch a tile")
+    check(fused_variants == {"shared": n_calls},
+          f"a fused refit tile left its factors in global memory: "
+          f"{fused_variants}")
+    check(fused_index[0] == fused_index[1] == n_calls,
+          f"index builds and refits of the fused tiles: {fused_index}")
     check(pk.pmf_lookahead_fused_plain.calls == 0,
           "the plain fused version ran on the fused refit path")
     fcheck = {}
@@ -1147,19 +1221,30 @@ def main() -> int:
                        rcfg.min_learning_rate], device=device)
     b5 = {dtype: dict(max_abs_err=0.0) for dtype in ("float32", "bfloat16")}
     b5_checks = {}
+    b5_index = {bf16: pk.rated_index(prob.rated, prob.R_obs, bf16=bf16)
+                for bf16 in (False, True)}
     for vals in tile_vals:
         fargs = (rst.U.mT.contiguous(), rst.V.mT.contiguous(), prob.R_obs,
                  prob.rated, ti, tj, tile_vals[vals], sig, ls)
         for steps in (8, FIT_BUDGET):
             for bf16 in (False, True):
                 dtype = "bfloat16" if bf16 else "float32"
-                got = pk.pmf_lookahead_fused_cuda(*fargs, steps, bf16)
+                got = pk.pmf_lookahead_fused_cuda(*fargs, steps, bf16,
+                                                  index=b5_index[bf16])
+                again = pk.pmf_lookahead_fused_cuda(*fargs, steps, bf16,
+                                                    index=b5_index[bf16])
+                check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                      f"the fused kernel's value, factors, evaluations or "
+                      f"accepts are not bitwise the same over two runs "
+                      f"({vals}, "
+                      f"{steps} steps, {dtype})")
                 want, plain_ms = timed_ms(lambda: pk.pmf_lookahead_fused_plain(
                     *fargs, steps, bf16))
-                evals = got[3]
+                evals, accepts = got[3], got[4]
                 same = evals == want[3]
                 n_same = int(same.sum())
                 row = dict(lanes_same_evals=n_same,
+                           lanes_same_accepts=int((accepts == want[4]).sum()),
                            evals_max=int(evals.max()),
                            evals_mean=float(evals.float().mean()),
                            f_rel_all_lanes=rel(got[0], want[0]))
@@ -1186,28 +1271,155 @@ def main() -> int:
                       f"{steps} steps, {dtype}): {row}")
                 if vals != "cli" or steps != FIT_BUDGET:
                     continue
-                # timed at the CLI's values and budget. Bytes: the mask, R
-                # where rated, the base factors and the lanes' cells in, the
-                # lanes' factors, values and evaluations out; operations:
-                # pred, Gu and Gv, 6 d flops on each rated cell and lane
-                # cell at every evaluation each lane made
-                ms = cuda_ms(lambda: pk.pmf_lookahead_fused_t(
+                # timed at the CLI's values and budget: the kernel's
+                # wrapper on the refit's index (buffers, the check of the
+                # cells, the launch); the public function without an index,
+                # which builds one (what earlier readings of this kernel
+                # timed); the launch alone by the profiler's device time.
+                # Bytes: the index once (pointers, columns, R's values,
+                # rows, positions), the base factors and the lanes' cells
+                # in, the lanes' factors, values and evaluations out;
+                # operations, on each rated cell and lane cell: pred, 2 d
+                # flops, at every evaluation each lane made; Gu and Gv, 4 d,
+                # at the start and where a proposal was accepted (a rejected
+                # proposal's gradients are not part of the function)
+                def launch():
+                    return pk.pmf_lookahead_fused_cuda(
+                        *fargs, steps, bf16, index=b5_index[bf16])
+
+                ms = cuda_ms(launch, 3)
+                call_ms = cuda_ms(lambda: pk.pmf_lookahead_fused_t(
                     *fargs, max_steps=steps, bf16=bf16), 3)
-                nnz = int(prob.rated.sum())
+                device_ms = kernel_device_ms(launch, "fused", reps=3)
+                nnz = b5_index[bf16].nnz
                 lane_cells = nnz + (~prob.rated[ti, tj]).to(torch.int64)
-                flops = 6 * D * int((evals.to(torch.int64) * lane_cells).sum())
+                flops = D * int(((2 * evals.to(torch.int64)
+                                  + 4 * (1 + accepts.to(torch.int64)))
+                                 * lane_cells).sum())
                 isz = 2 if bf16 else 4
-                n_bytes = (mask_and_r_bytes(prob.rated, isz) + (N + M) * D * 4
-                           + PK_TILE * (N + M) * D * isz + PK_TILE * (12 + 8))
+                n_bytes = ((N + M + 2) * 4 + nnz * (12 + isz)
+                           + (N + M) * D * 4 + PK_TILE * (N + M) * D * isz
+                           + PK_TILE * (12 + 8))
                 bms, bby = bound_ms(n_bytes, flops, dtype)
-                b5[dtype].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                 bound_by=bby, flops=flops, bytes=n_bytes)
+                b5[dtype].update(
+                    ms=ms, call_ms=call_ms, device_ms=device_ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                    flops=flops, bytes=n_bytes, evals_max=int(evals.max()),
+                    accepts_mean=float(accepts.float().mean()),
+                    accepts_of_slowest_lane=int(accepts[evals.argmax()]),
+                    evals_mean=float(evals.float().mean()),
+                    us_per_evaluation=1e3 * device_ms / int(evals.max()))
+    # a lane's factors at d = 32 (336 KB) do not fit a block's shared
+    # memory: the same search with the gathers on the spare set in global
+    # memory and e in a scratch buffer, held to the plain version
+    gen = torch.Generator(device=device).manual_seed(11)
+    wide = [0.2 * torch.rand(32, k, generator=gen, device=device)
+            for k in (N, M)]
+    b5_global = {}
+    for bf16 in (False, True):
+        dtype = "bfloat16" if bf16 else "float32"
+        gargs = (*wide, prob.R_obs, prob.rated, ti[:8], tj[:8], tv[:8], sig,
+                 ls)
+        before = pk.pmf_lookahead_fused_cuda.variants["global"]
+        got = pk.pmf_lookahead_fused_cuda(*gargs, PK_REFIT_STEPS, bf16,
+                                          index=b5_index[bf16])
+        again = pk.pmf_lookahead_fused_cuda(*gargs, PK_REFIT_STEPS, bf16,
+                                            index=b5_index[bf16])
+        check(pk.pmf_lookahead_fused_cuda.variants["global"] == before + 2,
+              "d = 32 at full shape did not take the global variant")
+        want = pk.pmf_lookahead_fused_plain(*gargs, PK_REFIT_STEPS, bf16)
+        row = b5_global[dtype] = dict(
+            lanes=8, d=32, steps=PK_REFIT_STEPS,
+            lanes_same_evals=int((got[3] == want[3]).sum()),
+            evals_max=int(got[3].max()), f_rel=rel(got[0], want[0]),
+            factor_scaled=max(
+                ((a.float() - b.float()).abs() / (1 + b.float().abs()))
+                .max().item() for a, b in zip(got[1:3], want[1:3])),
+            ms=cuda_ms(lambda: pk.pmf_lookahead_fused_cuda(
+                *gargs, PK_REFIT_STEPS, bf16, index=b5_index[bf16]), 3))
+        check(all(torch.equal(g, a) for g, a in zip(got, again))
+              and row["lanes_same_evals"] == 8 and row["evals_max"] > 1
+              and row["f_rel"] <= FUSED_KERNEL_TOL["f"]
+              and row["factor_scaled"] <= FUSED_KERNEL_TOL[
+                  "factors_bf16_moving" if bf16 else "factors"],
+              f"fused kernel, global-memory variant ({dtype}): {row}")
+    b5_variants = dict(pk.pmf_lookahead_fused_cuda.variants)
+    check(b5_variants.get("shared", 0) > 0 and b5_variants.get("global", 0) > 0,
+          f"not both variants of the fused kernel ran: {b5_variants}")
+
     print(json.dumps(dict(phase="fused_refit", lanes=PK_TILE,
-                          kernel_launches=fused_launches, checks=fcheck,
+                          kernel_launches=fused_launches,
+                          index_builds=fused_index[0], refits=fused_index[1],
+                          variants=b5_variants, checks=fcheck,
                           rtol=FUSED_RTOL, bf16_rtol=FUSED_BF16_RTOL,
                           kernel_vs_plain=b5_checks,
+                          global_variant=b5_global,
                           kernel_tol=FUSED_KERNEL_TOL, kernel=b5)), flush=True)
 
+    # A figure, no gate: how much of the add_rmse_boosts ranking survives
+    # the float32 refit's sensitivity to summation order. On the pool of
+    # phase 8, the boosts from the float32 fused kernel (and from the
+    # unfused float32 kernel path the CLI takes) against those of the plain
+    # proposal loop run in float64, all at the CLI's 200 steps.
+    from amf_tpu_torch.ops.linesearch import adaptive_descent
+
+    real_t = torch.as_tensor(real, device=device)  # float64
+    test_t = torch.as_tensor(knowable & ~known_np & ~pool, device=device)
+    pool_flat = torch.nonzero(torch.as_tensor(pool, device=device).flatten())
+    pi, pj = pool_flat[:, 0] // M, pool_flat[:, 0] % M
+    pv = real_t[pi, pj]
+
+    def rmses(U, V):
+        return torch.cat([add_rmse_boosts.masked_rmse(
+            U[c:c + 8].double() @ V[c:c + 8].double().mT, real_t, test_t)
+            for c in range(0, U.shape[0], 8)])
+
+    def refit_f64(s):
+        U0 = rst.U.double().expand(CLI_TILE, N, D).contiguous()
+        V0 = rst.V.double().expand(CLI_TILE, M, D).contiguous()
+        a64 = (prob.R_obs.double(), prob.rated, pi[s], pj[s], pv[s],
+               sig.double())
+
+        def value_and_grad(uv):
+            f, gu, gv = pk.pmf_batched_value_grad_reference(*uv, *a64)
+            return f, (gu, gv)
+
+        (U, V), info = adaptive_descent(
+            (U0, V0), value_and_grad,
+            lambda uv, g, lr: tuple(x + lr[:, None, None] * gx
+                                    for x, gx in zip(uv, g)),
+            lr0=rcfg.learning_rate, stop_thresh=rcfg.stop_thresh,
+            min_lr=rcfg.min_learning_rate, max_steps=FIT_BUDGET)
+        return U, V
+
+    r0 = float(add_rmse_boosts.masked_rmse(
+        rst.U.double() @ rst.V.double().mT, real_t, test_t))
+    boosts = {"f64_plain": [], "f32_fused": [], "f32_unfused": []}
+    t0 = time.perf_counter()
+    for c in range(0, CLI_POOL, CLI_TILE):
+        s = slice(c, c + CLI_TILE)
+        lane = (rst, prob, pi[s], pj[s], pv[s].float(), rcfg)
+        boosts["f64_plain"].append(r0 - rmses(*refit_f64(s)))
+        boosts["f32_fused"].append(r0 - rmses(*pmf.fit_lookahead_batch(
+            *lane, max_steps=FIT_BUDGET, lane_block=PK_LANE_BLOCK,
+            fused=True)[:2]))
+        boosts["f32_unfused"].append(r0 - rmses(*pmf.fit_lookahead_batch(
+            *lane, max_steps=FIT_BUDGET)[:2]))
+    torch.cuda.synchronize()
+    boosts = {k: torch.cat(v).cpu().numpy() for k, v in boosts.items()}
+    b64 = boosts["f64_plain"]
+    print(json.dumps(dict(
+        phase="boost_ranking_f32_vs_f64", pool=CLI_POOL, steps=FIT_BUDGET,
+        seconds=time.perf_counter() - t0, base_rmse=r0,
+        boost_f64_mean=float(b64.mean()), boost_f64_std=float(b64.std()),
+        **{f"{k}_{name}": val for k in ("f32_fused", "f32_unfused")
+           for name, val in (
+               ("spearman_vs_f64", spearman(boosts[k], b64)),
+               ("max_abs_diff_vs_f64", float(np.abs(boosts[k] - b64).max())),
+               ("same_best_cell", bool(boosts[k].argmax() == b64.argmax())),
+               ("top10_shared", len(set(np.argsort(-boosts[k])[:10])
+                                    & set(np.argsort(-b64)[:10]))))})),
+        flush=True)
     def vg_entry(layout, dtype, replaces, launches):
         row = next(r for r in vg if r["layout"] == layout
                    and r["dtype"] == dtype and r["L"] == VG_LANES)
@@ -1258,7 +1470,8 @@ def main() -> int:
            "launches": poly_launches[f"torch.{dtype}"],
            "max_abs_err": max(r["max_abs_err"] for r in lc
                               if r["dtype"] == dtype),
-           **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+           **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "device_ms", "call_ms")},
            "library_ms": None}
           for dtype in ("float32", "bfloat16")
           for row in [next(r for r in lc if r["dtype"] == dtype
@@ -1267,8 +1480,9 @@ def main() -> int:
            "source": "amf_tpu_torch/csrc/pmf_lookahead_fused.cu",
            "replaces": "amf_tpu/ops/pallas_kernels.py:577",
            "launches": fused_launches[f"torch.{dtype}"],
-           **{k: b5[dtype][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by")},
+           **{k: b5[dtype][k] for k in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "device_ms", "call_ms", "evals_max", "us_per_evaluation")},
            "library_ms": None}
           for dtype in ("float32", "bfloat16")),
     ]}), flush=True)

@@ -106,6 +106,50 @@ def test_sample_wishart_matches_jax_with_its_draws():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
 
 
+@pytest.mark.parametrize("batched", [False, True])
+def test_sample_wishart_gives_nan_where_sigma_is_not_positive_definite(batched):
+    """A failed factorisation is NaN, as ``jnp.linalg.cholesky`` makes it,
+    and only in the lane that failed; no exception, no host wait."""
+    bad = np.array([[1.0, 2.0], [2.0, 1.0]])
+    good = np.array([[2.0, 0.5], [0.5, 1.0]])
+    key = jax.random.PRNGKey(2)
+    kc, kn = jax.random.split(key)
+    gamma = _t(jax.random.gamma(kc, (6.0 - jnp.arange(2, dtype=F64)) / 2.0,
+                                (2,), dtype=F64))
+    normal = _t(jax.random.normal(kn, (2, 2), dtype=F64))
+    want = jbg.sample_wishart(key, jnp.asarray(bad), 6.0)
+    assert bool(jnp.isnan(want).all())
+    if not batched:
+        got = tbg.sample_wishart(_t(bad), 6.0, gamma=gamma, normal=normal)
+        assert bool(torch.isnan(got).all())
+        return
+    got = tbg.sample_wishart(_t(np.stack([good, bad])), 6.0,
+                             gamma=gamma.expand(2, 2),
+                             normal=normal.expand(2, 2, 2))
+    assert bool(torch.isnan(got[1]).all())
+    np.testing.assert_allclose(
+        got[0].numpy(),
+        np.asarray(jbg.sample_wishart(key, jnp.asarray(good), 6.0)), rtol=RTOL)
+
+
+def test_sample_hyperparam_is_not_finite_on_factors_it_cannot_invert():
+    """Non-finite factors: the JAX function returns no finite alpha, and
+    neither does the port (its ``inv_ex`` / ``cholesky_ex`` alone would)."""
+    feats = np.full((5, 2), np.inf)
+    cfg = jbg.GibbsConfig(latent_d=2)
+    key = jax.random.PRNGKey(4)
+    _, alpha = jbg.sample_hyperparam(key, jnp.asarray(feats), cfg)
+    assert not bool(jnp.isfinite(alpha).any())
+    gamma, nw, nmu = _hyper_draws(key, 5, 2)
+    _, talpha = tbg.sample_hyperparam(
+        _t(feats), tbg.GibbsConfig(**cfg._asdict()), gamma=_t(gamma),
+        normal_w=_t(nw), normal_mu=_t(nmu))
+    assert not bool(torch.isfinite(talpha).any())
+    singular = torch.zeros(2, 2, dtype=torch.float64)
+    assert bool(torch.isnan(tbg._inverse(singular)).all())
+    assert not bool(jnp.isfinite(jnp.linalg.inv(jnp.zeros((2, 2)))).any())
+
+
 def test_sample_hyperparam_matches_jax_with_its_draws():
     rng = np.random.default_rng(1)
     feats = rng.normal(size=(40, 3)) + np.array([1.0, -2.0, 0.5])

@@ -79,6 +79,29 @@ def test_leading_batch_dims_and_cpu_leaves_kernel_count():
     assert tck.chol_solve_sample_reference.calls == calls + 2
 
 
+def test_wide_d_on_the_cpu_matches_jax_plain_version(jck):
+    """d = 40 is above the kernels' 32: both dispatchers take the plain
+    version."""
+    S, rhs, z = _inputs(40, 6, 40, "float64")
+    want = np.asarray(jck.chol_solve_sample(S, rhs, z))
+    got = tck.chol_solve_sample(*_torch(S, rhs, z))
+    np.testing.assert_allclose(got.numpy(), want, **TOL["float64"])
+
+
+@pytest.mark.parametrize("cli", ["bayes_pmf", "add_rmse_boosts"])
+def test_help_states_the_widest_factor_the_kernels_take(cli, capsys):
+    """Wider than 32 raises on the card and runs on the CPU: said where a
+    user picks -D."""
+    import importlib
+
+    main = importlib.import_module(f"amf_tpu_torch.run.{cli}").main
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert "d <= 32 and a wider d raises" in text
+    assert "--device cpu" in text and tck.MAX_D == 32
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     S, rhs, z = _inputs(3, 5, 3, "float32")
     launches = tck.chol_solve_sample_batch_minor.launches
@@ -110,9 +133,13 @@ def test_cuda_kernel_matches_plain(cuda_device, d, dtype):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_large_d(cuda_device):
-    S, rhs, z = _inputs(0, 3, 33, "float32")
+    """d > 32 raises on the card, through the dispatcher too: no plain
+    version runs there unless the caller says ``kernel=False``."""
+    args = _torch(*_inputs(0, 3, 33, "float32"), device=cuda_device)
+    calls = tck.chol_solve_sample_reference.calls
     with pytest.raises(ValueError, match="d <= 32"):
-        tck.chol_solve_sample(*_torch(S, rhs, z, device=cuda_device))
+        tck.chol_solve_sample(*args)
+    assert tck.chol_solve_sample_reference.calls == calls
 
 
 # ---------------------------------------------------------------------------
@@ -267,5 +294,7 @@ def test_gram_cuda_kernel_matches_plain(cuda_device, d, center, cells, dtype):
 @pytest.mark.cuda
 def test_gram_cuda_kernel_refuses_large_d(cuda_device):
     x = _gram_case(0, 2, 5, 4, 33, "float32", False, False)
+    calls = tck.chol_solve_sample_reference.calls
     with pytest.raises(ValueError, match="d <= 32"):
         tck.chol_gram_solve_sample(*_gram_args(x, cuda_device))
+    assert tck.chol_solve_sample_reference.calls == calls

@@ -10,6 +10,12 @@ factors to bf16 in the same way and sum in float32, so the same bound holds.
 Against ``_delta_poly`` (float32, unrounded) the tolerance is that of
 tests/test_pallas_kernels.py:283-289: rtol 1e-4, atol 1e-6 on c3 and c4.
 
+The kernel walks the index of the rated cells (``rated_index``), which only
+the card reads. Its walk is held here on the CPU: a numpy walk of the index
+in the kernel's order (``line_coeff_sides``: a walked and a gathered side)
+gives the plain version's four sums, in float64 to 1e-12 scaled (the same
+products, summed in another order), and the JAX kernel's coefficients.
+
 The JAX package is imported by a fixture, so the tests marked ``cuda`` also
 run on a card host without JAX:
 ``python -m pytest --noconftest tests/test_torch_line_coeffs.py -m cuda``.
@@ -114,6 +120,119 @@ def test_matches_delta_poly_per_lane():
                                        atol=1e-6 if q >= 2 else 0)
 
 
+def _ragged_case(seed, n, m, d=4, dtype=np.float32):
+    """n x m at 30 % rated with an empty row and an empty column; lane 0
+    hypothesises a rated cell, lane 1 an unrated one in the empty row, lane
+    2 an unrated one in the empty column, lane 3 the last cell, unrated."""
+    rng = np.random.default_rng(seed)
+    rated = rng.random((n, m)) < 0.3
+    rated[11, :] = False
+    rated[:, 17] = False
+    rated[3, 4] = True
+    rated[n - 1, m - 1] = False
+    R = np.where(rated, rng.integers(1, 6, (n, m)), 0).astype(dtype)
+    fac = [rng.normal(size=(4, d, k)).astype(dtype) for k in (n, m, n, m)]
+    return (*fac, R, rated, np.asarray([3, 11, 20, n - 1], np.int32),
+            np.asarray([4, 30, 17, m - 1], np.int32),
+            rng.integers(1, 6, 4).astype(dtype),
+            np.asarray([0.8, 10.0, 7.0], dtype))
+
+
+def _walk(ix, Ut, Vt, Gut, Gvt, di, dj, dv):
+    """(L, 4) [a2, a11, a12, a22] by the kernel's walk of the index: a
+    thread a row of the walked side, the lane's own cell in place of the
+    rated value or after the row's rated cells."""
+    (X, GX), (Y, GY), ptr, idx, r, cell_w, cell_g = (
+        tuple(np.asarray(t) for t in side) if isinstance(side, tuple)
+        else np.asarray(side)
+        for side in tpk.line_coeff_sides(ix, Ut, Vt, Gut, Gvt, di, dj))
+    L, _, rows_w = X.shape
+    acc = np.zeros((L, 4), X.dtype)
+    for l in range(L):
+        for w in range(rows_w):
+            cells = [(idx[e], r[e]) for e in range(ptr[w], ptr[w + 1])]
+            if w == cell_w[l]:
+                hit = [k for k, (g, _) in enumerate(cells) if g == cell_g[l]]
+                if hit:
+                    cells[hit[0]] = (cell_g[l], dv[l])
+                else:
+                    cells.append((cell_g[l], dv[l]))
+            for g, rv in cells:
+                x, gx, y, gy = X[l, :, w], GX[l, :, w], Y[l, :, g], GY[l, :, g]
+                err = rv - x @ y
+                p1, p2 = gx @ y + x @ gy, gx @ gy
+                acc[l] += (err * p2, p1 * p1, p1 * p2, p2 * p2)
+    return acc
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (53, 37)])
+def test_index_walk_matches_plain_and_jax_kernel(jpk, interpret, shape):
+    """The shorter side is gathered: 37 x 53 walks the columns (CSC),
+    53 x 37 the rows (CSR). Float64 against the plain version; the
+    coefficients assembled from the walk's float32 sums against the JAX
+    kernel."""
+    x = _ragged_case(sum(shape), *shape, dtype=np.float64)
+    Ut, Vt, Gut, Gvt, R, rated, di, dj, dv, sig = x
+    assert rated[di[0], dj[0]] and not rated[di[1:], dj[1:]].any()
+    assert not rated[11].any() and not rated[:, 17].any()
+    ix = tpk.rated_index(torch.as_tensor(rated), torch.as_tensor(R))
+    sides = tpk.line_coeff_sides(ix, Ut, Vt, Gut, Gvt, di, dj)
+    assert sides[1][0].shape[2] == min(shape)  # the gathered side
+    want = tpk.pmf_line_coeffs_plain(*_torch(x[:9])).numpy()
+    got = _walk(ix, *x[:4], di, dj, dv)
+    assert np.max(np.abs(got - want) / (1 + np.abs(want))) <= 1e-12
+
+    x32 = tuple(a.astype(np.float32) if a.dtype == np.float64 else a
+                for a in x)
+    a2, a11, a12, a22 = _walk(ix, *x32[:4], di, dj, x32[8]).T
+    uu, vv = (x32[2] ** 2).sum((1, 2)), (x32[3] ** 2).sum((1, 2))
+    s, s_u, s_v = x32[9]
+    mine = (uu + vv, -(a11 - 2 * a2) / (2 * s) - (uu / s_u + vv / s_v) / 2,
+            -a12 / s, -a22 / (2 * s))
+    jax_c = jpk.pmf_line_coeffs_t.__wrapped__(
+        *(jpk.jnp.asarray(a) for a in x32), block_rows=8, lanes_per_block=2,
+        bf16=False)
+    _close(mine, jax_c)
+
+
+def test_index_is_ignored_on_the_cpu_and_checked_on_mismatch():
+    x = _torch(_ragged_case(0, 37, 53))
+    ix = tpk.rated_index(x[5], x[4])
+    a = tpk.pmf_line_coeffs_t(*x, bf16=False, index=ix)
+    b = tpk.pmf_line_coeffs_t(*x, bf16=False)
+    for p, q in zip(a, b):
+        torch.testing.assert_close(p, q, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="does not fit"):
+        tpk._index_for(ix, x[5].T, x[4].T, torch.float32)
+    with pytest.raises(ValueError, match="does not fit"):
+        tpk._index_for(ix, x[5], x[4], torch.bfloat16)
+
+
+def test_poly_refit_hands_the_refits_index_to_the_coefficients(monkeypatch):
+    """``fit_lookahead_batch(poly_ls=True)`` gives ``pmf_line_coeffs_t`` the
+    index it gives the value+gradient function: on the CPU none is built,
+    on a card the one of the refit (the ``cuda`` twin below counts it)."""
+    Ut, Vt, _, _, R, rated, di, dj, dv, sig = _torch(_inputs(4))
+    state = tpmf.PMFState(U=Ut[0].T.contiguous(), V=Vt[0].T.contiguous(),
+                          sigma_sq=sig[0], sigma_u_sq=sig[1],
+                          sigma_v_sq=sig[2], mean_rating=torch.tensor(0.0))
+    prob = Problem(R_obs=R, rated=rated, queryable=~rated, test=rated)
+    seen = []
+    inner = tpk.pmf_line_coeffs_t
+
+    def coeffs(*a, **kw):
+        seen.append(kw["index"])
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(tpk, "pmf_line_coeffs_t", coeffs)
+    builds = tpk.rated_index.calls
+    tpmf.fit_lookahead_batch(state, prob, di, dj, dv,
+                             tpmf.PMFConfig(latent_d=3), max_steps=4,
+                             lane_block=2, poly_ls=True)
+    assert seen and all(ix is None for ix in seen)
+    assert tpk.rated_index.calls == builds
+
+
 def test_cpu_wrapper_runs_the_plain_version_and_launches_nothing():
     x = _torch(_inputs(2))
     launches = sum(tpk.pmf_line_coeffs_cuda.launches.values())
@@ -129,6 +248,8 @@ def test_cuda_launcher_refuses_cpu_tensors():
     launches = sum(tpk.pmf_line_coeffs_cuda.launches.values())
     with pytest.raises(ValueError, match="CUDA"):
         tpk.pmf_line_coeffs_cuda(*x[:-1])
+    with pytest.raises(ValueError, match="CUDA"):
+        tpk.pmf_line_coeffs_cuda(*x[:-1], index=tpk.rated_index(x[5], x[4]))
     assert sum(tpk.pmf_line_coeffs_cuda.launches.values()) == launches
 
 
@@ -155,6 +276,71 @@ def test_cuda_kernel_matches_plain(cuda_device, bf16, d):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_large_d(cuda_device):
+    """d > 32 raises on the card, through the public function too."""
     x = _torch(_inputs(0, d=33), cuda_device)
+    calls = tpk.pmf_line_coeffs_plain.calls
     with pytest.raises(ValueError, match="d <= 32"):
-        tpk.pmf_line_coeffs_t(*x)
+        tpk.pmf_line_coeffs_t(*x, bf16=False)
+    assert tpk.pmf_line_coeffs_plain.calls == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 53), (53, 37)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_kernel_walks_the_given_index(cuda_device, bf16, shape):
+    """Ragged shapes, both walks, lanes on rated and unrated cells; the
+    index is built once and handed in, a wrong one is refused, and the sums
+    repeat bit for bit."""
+    x = _torch(_ragged_case(7, *shape), cuda_device)
+    ix = tpk.rated_index(x[5], x[4], bf16=bf16)
+    builds = tpk.rated_index.calls
+    before = tpk.pmf_line_coeffs_cuda.variants["shared"]
+    got = tpk.pmf_line_coeffs_t(*x, bf16=bf16, index=ix)
+    again = tpk.pmf_line_coeffs_t(*x, bf16=bf16, index=ix)
+    assert tpk.rated_index.calls == builds
+    assert tpk.pmf_line_coeffs_cuda.variants["shared"] == before + 2
+    want = tpk.pmf_line_coeffs_t(*x, bf16=bf16, kernel=False)
+    _close([c.cpu().numpy() for c in got], [c.cpu().numpy() for c in want])
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    with pytest.raises(ValueError, match="does not fit"):
+        tpk.pmf_line_coeffs_t(*x, bf16=not bf16, index=ix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_kernel_global_memory_variant(cuda_device, bf16):
+    """943 rows at d = 32 do not fit a block's shared memory."""
+    rng = np.random.default_rng(5)
+    L, n, m, d = 3, 943, 1682, 32
+    rated = rng.random((n, m)) < 0.01
+    x = [*(0.3 * rng.normal(size=(L, d, k)).astype(np.float32)
+           for k in (n, m, n, m)),
+         np.where(rated, rng.integers(1, 6, (n, m)), 0).astype(np.float32),
+         rated, np.asarray([0, 5, n - 1], np.int32),
+         np.asarray([1, 8, m - 1], np.int32),
+         np.asarray([3.0, 1.0, 5.0], np.float32),
+         np.asarray([0.8, 10.0, 7.0], np.float32)]
+    x = _torch(x, cuda_device)
+    before = tpk.pmf_line_coeffs_cuda.variants["global"]
+    got = tpk.pmf_line_coeffs_t(*x, bf16=bf16)
+    assert tpk.pmf_line_coeffs_cuda.variants["global"] == before + 1
+    want = tpk.pmf_line_coeffs_t(*x, bf16=bf16, kernel=False)
+    _close([c.cpu().numpy() for c in got], [c.cpu().numpy() for c in want])
+
+
+@pytest.mark.cuda
+def test_cuda_poly_refit_builds_one_index(cuda_device):
+    Ut, Vt, _, _, R, rated, di, dj, dv, sig = _torch(_inputs(4), cuda_device)
+    state = tpmf.PMFState(U=Ut[0].T.contiguous(), V=Vt[0].T.contiguous(),
+                          sigma_sq=sig[0], sigma_u_sq=sig[1],
+                          sigma_v_sq=sig[2],
+                          mean_rating=torch.tensor(0.0, device=cuda_device))
+    prob = Problem(R_obs=R, rated=rated, queryable=~rated, test=rated)
+    builds = tpk.rated_index.calls
+    launches = sum(tpk.pmf_line_coeffs_cuda.launches.values())
+    tpmf.fit_lookahead_batch(state, prob, di, dj, dv,
+                             tpmf.PMFConfig(latent_d=3), max_steps=4,
+                             lane_block=2, poly_ls=True)
+    assert tpk.rated_index.calls == builds + 1
+    assert sum(tpk.pmf_line_coeffs_cuda.launches.values()) > launches

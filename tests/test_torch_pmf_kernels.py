@@ -129,6 +129,31 @@ def test_t_wrapper_bf16_matches_lane_blocked_kernel_interpret(jpk, interpret):
     _close(got, want, grad_tol=GRAD_BF16)
 
 
+def test_wide_d_on_the_cpu_matches_jax_reference(jpk):
+    """d = 40 is above the CUDA kernels' 32; the JAX kernels take any d."""
+    x = _inputs(40, 2, 7, 6, 40)
+    want = jpk.pmf_batched_value_grad_reference(*_jax(jpk, x))
+    _close(tpk.pmf_batched_value_grad(*_torch(x)), want)
+
+
+def test_dispatch_sends_only_cpu_tensors_to_the_plain_version():
+    """The rule, held without a card: a CUDA tensor is the kernel's at any
+    width (whose launcher refuses d > 32), the plain version's only with
+    ``kernel=False``; a CPU tensor is always the plain version's."""
+    import types
+
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    on_cpu = types.SimpleNamespace(device=torch.device("cpu"))
+    on_meta = types.SimpleNamespace(device=torch.device("meta"))
+    assert tpk._use_kernel(on_card, True, "pmf_value_grad")
+    assert not tpk._use_kernel(on_card, False, "pmf_value_grad")
+    assert not tpk._use_kernel(on_cpu, True, "pmf_value_grad")
+    with pytest.raises(ValueError, match="pmf_line_coeffs runs on cpu or "
+                       "cuda, not meta"):
+        tpk._use_kernel(on_meta, True, "pmf_line_coeffs")
+    assert tpk.MAX_D == 32
+
+
 def test_cpu_wrappers_run_the_plain_version_and_launch_nothing():
     x = _torch(_inputs(1, 3, 6, 5, 2))
     launches = sum(tpk.pmf_value_grad_cuda.launches.values())
@@ -234,6 +259,37 @@ def test_rated_index_equals_scipy_csr_and_csc(seed):
                            bf16=True).r_row.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rated_index_rebuilds_the_rated_cells(seed):
+    """The index holds the problem's rated cells and no other, by row and
+    by column, with R's values; ``_index_for`` hands a fitting index back
+    and refuses one of another problem or dtype."""
+    _, _, R, rated = _ragged_case(seed)[:4]
+    rt, Rt = torch.as_tensor(rated), torch.as_tensor(R)
+    ix = tpk.rated_index(rt, Rt)
+    row_ptr, col_idx, r_row, col_ptr, row_idx, r_col, pos = (
+        t.numpy() for t in ix[:7])
+    assert ix.shape == (37, 53) and ix.nnz == int(rated.sum())
+    by_row = np.zeros((37, 53), np.float32)
+    for i in range(37):
+        e = slice(row_ptr[i], row_ptr[i + 1])
+        assert (np.diff(col_idx[e]) > 0).all()
+        by_row[i, col_idx[e]] = r_row[e]
+    by_col = np.zeros((37, 53), np.float32)
+    for j in range(53):
+        e = slice(col_ptr[j], col_ptr[j + 1])
+        assert (np.diff(row_idx[e]) > 0).all()
+        by_col[row_idx[e], j] = r_col[e]
+        np.testing.assert_array_equal(r_row[pos[e]], r_col[e])
+    np.testing.assert_array_equal(by_row, np.where(rated, R, 0))
+    np.testing.assert_array_equal(by_col, by_row)
+    assert tpk._index_for(ix, rt, Rt, torch.float32) is ix
+    with pytest.raises(ValueError, match="does not fit"):
+        tpk._index_for(ix, rt, Rt, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not fit"):
+        tpk._index_for(ix, rt[:, :-1], Rt[:, :-1], torch.float32)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_index_walk_matches_plain_and_jax_reference(jpk, seed):
     x = _ragged_case(seed)
@@ -298,9 +354,12 @@ def test_cuda_kernel_matches_plain(cuda_device, layout, bf16, d):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_large_d(cuda_device):
+    """d > 32 raises on the card, through the public function too."""
     x = _torch(_inputs(0, 2, 5, 4, 33), cuda_device)
+    calls = tpk.pmf_value_grad_plain.calls
     with pytest.raises(ValueError, match="d <= 32"):
         tpk.pmf_batched_value_grad(*x)
+    assert tpk.pmf_value_grad_plain.calls == calls
 
 
 @pytest.mark.cuda
