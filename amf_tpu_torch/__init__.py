@@ -5,18 +5,24 @@ reference: each module here mirrors the JAX module of the same name and is
 held against it by the ``tests/test_torch_*.py`` parity tests. This package
 imports ``torch`` and never ``jax``.
 
-Two slices are ported. The Gibbs BPMF ``exp-variance`` one-step lookahead
-with its active loop and the ``bayes_pmf`` command line; and the PMF-refit
-lookahead ``models/pmf.fit_lookahead_batch`` in all of its paths (proposal
-loop, lane-blocked, poly line search, fused) with the ``add_rmse_boosts``
-command line. Every kernel the JAX package wrote in Pallas has a
-hand-written CUDA kernel here, built by nvcc at first use and loaded with
-ctypes (factor widths d <= 32), and a plain PyTorch version beside it
-that the CPU runs:
+Three slices are ported. The Gibbs BPMF ``exp-variance`` one-step
+lookahead with its active loop and the ``bayes_pmf`` command line; the
+PMF-refit lookahead ``models/pmf.fit_lookahead_batch`` in all of its paths
+(proposal loop, lane-blocked, poly line search, fused) with the
+``add_rmse_boosts`` command line; and ActivePMF, the variational-normal
+lookahead (full covariance and matrix normal) with its active loop, the
+``active_pmf`` command line and the flagship ``entry()`` step. Every kernel
+the JAX package wrote in Pallas has a hand-written CUDA kernel here, built
+by nvcc at first use and loaded with ctypes (any factor width d: d <= 32
+from one library a source, a wider d from a library built for it), and a
+plain PyTorch version beside it that the CPU runs. The variational path
+runs PyTorch's own linear algebra (eigh, slogdet, autograd), as the JAX
+package runs XLA's:
 
-  types         dense masked Problem of tensors; per-lane hypothesised cells
+  types         dense masked Problem of tensors (with lane dimensions);
+                per-lane hypothesised cells and their own problems
   data          synthetic generator and the reference npz schema IO (numpy)
-  analysis      RMSE and misclassification metrics
+  analysis      RMSE and misclassification; AUC, Kendall tau, R-hat, ESS
   ops           linesearch: the adaptive accept/reject and poly line searches
                 chol_kernel: Cholesky solve-and-sample, given S or fed from
                   the masked Gram products (csrc/chol_solve_sample.cu)
@@ -25,15 +31,23 @@ that the CPU runs:
                   line-search quartic's reductions (csrc/pmf_line_coeffs.cu)
                   and the whole line search in one launch
                   (csrc/pmf_lookahead_fused.cu)
-                cuda_build: nvcc into build/amf_tpu_torch/, ctypes loading
+                cuda_build: nvcc into build/amf_tpu_torch/, ctypes loading,
+                  each source's defines for a factor width
                 probe_kernels: registers, spills and launch timings on a card
-                quadrature: the trapezoid grid for continuous lookahead
-  models        PMF MAP fit and the batched lookahead refit; Gibbs BPMF chains
-                and the exp-variance lookahead
-  active        the active-learning driver and the Gibbs loop
-  run           the bayes_pmf and add_rmse_boosts command lines
+                quadrature: lookahead integration weights (sum, simps,
+                  Gauss-Legendre, the trapezoid grid)
+                moments: batched Gaussian moments of the approximations
+                psd: batched PSD projection
+  models        PMF MAP fit, sigma updates and the batched lookahead refit;
+                Gibbs BPMF chains and the exp-variance lookahead; the
+                variational approximations vnormal and mnormal
+  active        the active-learning driver; the Gibbs loop; the ActivePMF
+                criteria, lookahead and loop
+  run           the bayes_pmf, add_rmse_boosts and active_pmf command lines
+  entry         the flagship step (one pred-variance scoring pass)
   convert       state conversion to and from the JAX package's field layout
-  utils         device and precision policy, seeded generator streams
+  utils         device and precision policy, seeded generator streams,
+                factorisations that give NaN where they fail
 
 The entry points run on the card unless the caller names the CPU.
 """

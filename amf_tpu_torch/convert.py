@@ -6,7 +6,8 @@ port type is built from a source that holds those fields as arrays: a
 mapping keyed by the JAX field names, or any object with those attributes
 (a JAX state itself works, read through ``numpy.asarray``, so this module
 never imports JAX). ``to_numpy`` goes back the other way, so both packages
-can start from identical parameters.
+can start from identical parameters. ``device`` None means the card
+(``utils.platform.resolve_device``); the CPU is named.
 """
 
 from __future__ import annotations
@@ -19,8 +20,11 @@ import numpy as np
 import torch
 
 from amf_tpu_torch.models.bpmf_gibbs import ChainState, PredStats
+from amf_tpu_torch.models.mnormal import MNState
 from amf_tpu_torch.models.pmf import PMFState
+from amf_tpu_torch.models.vnormal import VNState
 from amf_tpu_torch.types import Problem
+from amf_tpu_torch.utils.platform import resolve_device
 
 
 def _field(src, name: str):
@@ -38,29 +42,40 @@ def _tensor(x, device, dtype) -> Optional[torch.Tensor]:
 
 
 def _build(cls, src, device, dtype):
+    device = resolve_device(device)
     names = (cls._fields if hasattr(cls, "_fields")
              else [f.name for f in dataclasses.fields(cls)])
     return cls(**{k: _tensor(_field(src, k), device, dtype) for k in names})
 
 
-def problem(src, device="cpu", dtype=None) -> Problem:
+def problem(src, device=None, dtype=None) -> Problem:
     """``Problem`` from R_obs, rated, queryable, test."""
     return _build(Problem, src, device, dtype)
 
 
-def pmf_state(src, device="cpu", dtype=None) -> PMFState:
+def pmf_state(src, device=None, dtype=None) -> PMFState:
     """``PMFState`` from U, V, sigma_sq, sigma_u_sq, sigma_v_sq, mean_rating."""
     return _build(PMFState, src, device, dtype)
 
 
-def chain_state(src, device="cpu", dtype=None) -> ChainState:
+def chain_state(src, device=None, dtype=None) -> ChainState:
     """``ChainState`` from U, V, mean_rating."""
     return _build(ChainState, src, device, dtype)
 
 
-def pred_stats(src, device="cpu", dtype=None) -> PredStats:
+def pred_stats(src, device=None, dtype=None) -> PredStats:
     """``PredStats`` from mean, var, prob_ge, bin_counts (may be None)."""
     return _build(PredStats, src, device, dtype)
+
+
+def vn_state(src, device=None, dtype=None) -> VNState:
+    """``VNState`` from mean, cov."""
+    return _build(VNState, src, device, dtype)
+
+
+def mn_state(src, device=None, dtype=None) -> MNState:
+    """``MNState`` from mean, cov_useritems, cov_latents."""
+    return _build(MNState, src, device, dtype)
 
 
 def to_numpy(state) -> Dict[str, Optional[np.ndarray]]:

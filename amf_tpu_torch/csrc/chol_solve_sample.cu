@@ -57,9 +57,14 @@
 // C interface (loaded with ctypes): see the bottom of this file. Every
 // function returns the cudaError_t of its launch.
 //
+// Widths: built without AMF_ONLY_D the library takes every D from 1 to
+// 32; built with AMF_ONLY_D=D it takes that one D, which is how a D
+// above 32 is built (one library a width; the loops stay rolled and the
+// factor lives in local memory, as above 16).
+//
 // Build-time knobs, for the probe (python -m amf_tpu_torch.ops.probe_kernels):
 // AMF_CHOL_THREADS (threads a block), AMF_CHOL_MIN_BLOCKS (the second
-// argument of __launch_bounds__), AMF_CHOL_ONLY_D (instantiate one D only),
+// argument of __launch_bounds__), AMF_ONLY_D (instantiate one D only),
 // AMF_CHOL_PROBE (adds copy-only kernels with the same loads and stores),
 // AMF_CHOL_STAGED_ZX (z and x go through a shared-memory slab).
 
@@ -317,10 +322,10 @@ cudaError_t launch_gram(const GramArgs<T>& a, int64_t L, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-#ifdef AMF_CHOL_ONLY_D
+#ifdef AMF_ONLY_D
 #define AMF_CASES(CALL) \
-  case AMF_CHOL_ONLY_D: \
-    return CALL(AMF_CHOL_ONLY_D);
+  case AMF_ONLY_D: \
+    return CALL(AMF_ONLY_D);
 #else
 #define AMF_CASES(C)                                                        \
   case 1: return C(1); case 2: return C(2); case 3: return C(3);            \

@@ -43,7 +43,12 @@
 //     replaces the rated value when the cell is rated, and is one more cell
 //     after its row's rated cells when not; a cell outside the problem is
 //     ignored;
-//   * d (<= 32) is bucketed to 8, 16 or 32 at compile time.
+//   * d (<= 32) is bucketed to 8, 16 or 32 at compile time; a wider d is
+//     built one library a width (-DAMF_ONLY_D=d), at 256 threads a block so
+//     that the walked row's factor and direction (2 d values) stay in the
+//     255 registers a thread may have. At 512 threads (128 registers) d = 48
+//     spilled 0.2-2.6 KB a thread and took 1.3-1.7x as long (an H100, 8
+//     lanes; python -m amf_tpu_torch.ops.probe_kernels --wide-only).
 // A thread a walked row suits sparse data like the refit tiles measured so
 // far (~3 rated cells a column, ~5 a row); at the density of the full
 // MovieLens-100k ratings (~60 a column, up to several hundred) the rows are
@@ -64,8 +69,11 @@
 namespace {
 
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+// threads a block: 512 while a walked row (2 DMAX values) fits the 128
+// registers a thread may have there, else 256
+__host__ __device__ constexpr int threads_for(int dmax) {
+  return dmax <= 32 ? 512 : 256;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -88,12 +96,14 @@ struct Args {
 
 // floats of shared memory: the warps' partial sums and, with the gathered
 // side in shared memory, its factor and direction
-inline int64_t smem_floats(int64_t rows_g, int d, bool shared) {
-  return 4 * kWarps + (shared ? 2 * rows_g * (d | 1) : 0);
+inline int64_t smem_floats(int nt, int64_t rows_g, int d, bool shared) {
+  return 4 * (nt / 32) + (shared ? 2 * rows_g * (d | 1) : 0);
 }
 
 template <typename T, int DMAX, bool kShared>
-__global__ void __launch_bounds__(kThreads) line_coeffs(Args a) {
+__global__ void __launch_bounds__(threads_for(DMAX)) line_coeffs(Args a) {
+  constexpr int kThreads = threads_for(DMAX);
+  constexpr int kWarps = kThreads / 32;
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int d = a.d, ds = a.d | 1;
@@ -188,7 +198,8 @@ __global__ void __launch_bounds__(kThreads) line_coeffs(Args a) {
 
 template <typename T, int DMAX, bool kShared>
 cudaError_t launch(const Args& a, int64_t L, cudaStream_t stream) {
-  const int64_t bytes = 4 * smem_floats(a.rows_g, a.d, kShared);
+  constexpr int kThreads = threads_for(DMAX);
+  const int64_t bytes = 4 * smem_floats(kThreads, a.rows_g, a.d, kShared);
   if (bytes > kSmemLimit) return cudaErrorInvalidValue;
   auto kernel = line_coeffs<T, DMAX, kShared>;
   static bool configured = false;  // once per instantiation
@@ -202,14 +213,29 @@ cudaError_t launch(const Args& a, int64_t L, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The widths this library takes: 1..32 in buckets of 8, 16 and 32, or, built
+// with -DAMF_ONLY_D=d, the one width d.
+#ifdef AMF_ONLY_D
+static_assert(AMF_ONLY_D >= 1, "AMF_ONLY_D is a factor width");
+constexpr bool width_ok(int d) { return d == AMF_ONLY_D; }
+constexpr int bucket(int) { return AMF_ONLY_D; }
+#else
+constexpr bool width_ok(int d) { return d >= 1 && d <= 32; }
+constexpr int bucket(int d) { return d <= 8 ? 8 : d <= 16 ? 16 : 32; }
+#endif
+
 template <typename T>
 cudaError_t by_width(const Args& a, int64_t L, bool shared, cudaStream_t s) {
 #define AMF_WIDTH(DMAX)                                    \
   return shared ? launch<T, DMAX, true>(a, L, s)           \
                 : launch<T, DMAX, false>(a, L, s)
+#ifdef AMF_ONLY_D
+  AMF_WIDTH(AMF_ONLY_D);
+#else
   if (a.d <= 8) AMF_WIDTH(8);
   if (a.d <= 16) AMF_WIDTH(16);
   AMF_WIDTH(32);
+#endif
 #undef AMF_WIDTH
 }
 
@@ -219,7 +245,7 @@ cudaError_t by_width(const Args& a, int64_t L, bool shared, cudaStream_t s) {
 // caller takes that variant when they are at most
 // amf_pmf_line_coeffs_smem_limit().
 extern "C" long long amf_pmf_line_coeffs_smem_bytes(long long rows_g, int d) {
-  return 4 * smem_floats(rows_g, d, true);
+  return 4 * smem_floats(threads_for(bucket(d)), rows_g, d, true);
 }
 
 extern "C" long long amf_pmf_line_coeffs_smem_limit() { return kSmemLimit; }
@@ -228,15 +254,16 @@ extern "C" long long amf_pmf_line_coeffs_smem_limit() { return kSmemLimit; }
 // shared: 1 keeps the gathered side in shared memory (it must fit), 0 leaves
 // it in global memory. (X, GX) are the walked side's factor and direction,
 // (Y, GY) the gathered side's; ptr, idx and r are the index's cells by the
-// walked side (CSR to walk the rows, CSC to walk the columns).
+// walked side (CSR to walk the rows, CSC to walk the columns). d must be a
+// width this library takes (width_ok).
 extern "C" int amf_pmf_line_coeffs(
     int in_bf16, int shared, const void* X, const void* GX, const void* Y,
     const void* GY, const int32_t* ptr, const int32_t* idx, const void* r,
     const int64_t* cell_w, const int64_t* cell_g, const float* dv, float* acc,
     long long L, long long rows_w, long long rows_g, int d, void* stream) {
   if (L < 1 || L > 0x7fffffffLL || rows_w < 1 || rows_g < 1 ||
-      rows_w > 0x7fffffffLL / 33 || rows_g > 0x7fffffffLL / 33 || d < 1 ||
-      d > 32)
+      !width_ok(d) || rows_w > 0x7fffffffLL / (d | 1) ||
+      rows_g > 0x7fffffffLL / (d | 1))
     return (int)cudaErrorInvalidValue;
   Args a{X, GX, Y, GY, ptr, idx, r, cell_w, cell_g, dv, acc,
          (int64_t)rows_w, (int64_t)rows_g, d};

@@ -61,7 +61,7 @@
 //     set, and accepting is swapping the sets, not copying. Set 0 is the
 //     output; a lane that ends on set 1 copies its factors once;
 //   * the passes are bound by the instructions one block can run, so the
-//     library is built for one factor width d (-DAMF_D=d, one library a
+//     library is built for one factor width d (-DAMF_ONLY_D=d, one library a
 //     width): a row of d values is a register array of exactly d, with no
 //     slots or predicates of a wider bucket. Built for a bucket of 16 the
 //     same kernel took 7.0 ms against 4.0 ms at d = 10 (an H100, 128 lanes,
@@ -99,19 +99,19 @@
 
 #include <type_traits>
 
-#ifndef AMF_D
-#error "build with -DAMF_D=<factor width d>: one library a width"
+#ifndef AMF_ONLY_D
+#error "build with -DAMF_ONLY_D=<factor width d>: one library a width"
 #endif
 
 namespace {
 
-constexpr int D = AMF_D;            // the factor width this library is for
+constexpr int D = AMF_ONLY_D;       // the factor width this library is for
 constexpr int DS = D | 1;           // odd stride of a row in shared memory
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may take
 // threads a block: a row of factors, its gradient and one gathered row stay
 // in registers (3 D + ~45 a thread, 65,536 an SM)
 constexpr int NT = D <= 16 ? 512 : 256;
-static_assert(D >= 1 && D <= 32, "1 <= d <= 32");
+static_assert(D >= 1, "AMF_ONLY_D is a factor width");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -454,7 +454,7 @@ extern "C" int amf_pmf_lookahead_fused(
     float* f, int32_t* counts, long long L, long long n, long long m,
     long long nnz, int d, int max_steps, void* stream) {
   if (d != D || L < 1 || L > 0x7fffffffLL / 4 || n < 1 || m < 1 || nnz < 0 ||
-      n > 0x7fffffffLL / 33 || m > 0x7fffffffLL / 33 ||
+      n > 0x7fffffffLL / DS || m > 0x7fffffffLL / DS ||
       nnz >= 0x7fffffffLL || max_steps < 0 ||
       (!shared && e_scratch == nullptr))
     return (int)cudaErrorInvalidValue;

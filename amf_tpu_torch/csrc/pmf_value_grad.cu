@@ -49,7 +49,8 @@
 //     from the threads (neighbouring rows, neighbouring addresses), (L, rows,
 //     d) through a per-warp tile of shared memory;
 //   * the factor width d (<= 32) is bucketed to 8, 16 or 32 at compile time
-//     so a row of factors sits in registers.
+//     so a row of factors sits in registers; a wider d is built one library
+//     a width (-DAMF_ONLY_D=d, the caller's choice above 32).
 // Where a lane's factors and residuals do not fit the 227 KB a block may have
 // (943 x 1682 at d = 32), the caller picks the variant that runs the same
 // walk on the factors in global memory (they sit in L2), with e in a scratch
@@ -106,7 +107,7 @@ struct Args {
 };
 
 // threads a block: a d <= 16 row of factors, its gradient and one gathered
-// row stay in registers at 512 threads (<= 128 a thread); 256 at d <= 32
+// row stay in registers at 512 threads (<= 128 a thread); 256 above
 constexpr int threads_for(int dmax) { return dmax <= 16 ? 512 : 256; }
 
 // floats of shared memory: the reduction, the warps' output tiles and, with
@@ -331,16 +332,29 @@ cudaError_t launch(const Args& a, int64_t L, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The widths this library takes: 1..32 in buckets of 8, 16 and 32, or, built
+// with -DAMF_ONLY_D=d, the one width d.
+#ifdef AMF_ONLY_D
+static_assert(AMF_ONLY_D >= 1, "AMF_ONLY_D is a factor width");
+constexpr bool width_ok(int d) { return d == AMF_ONLY_D; }
+constexpr int bucket(int) { return AMF_ONLY_D; }
+#else
+constexpr bool width_ok(int d) { return d >= 1 && d <= 32; }
 constexpr int bucket(int d) { return d <= 8 ? 8 : d <= 16 ? 16 : 32; }
+#endif
 
 template <typename T, typename TO, bool kRound>
 cudaError_t by_width(const Args& a, int64_t L, bool shared, cudaStream_t s) {
 #define AMF_WIDTH(DMAX)                                                    \
   return shared ? launch<T, TO, kRound, DMAX, true>(a, L, s)               \
                 : launch<T, TO, kRound, DMAX, false>(a, L, s)
+#ifdef AMF_ONLY_D
+  AMF_WIDTH(AMF_ONLY_D);
+#else
   if (a.d <= 8) AMF_WIDTH(8);
   if (a.d <= 16) AMF_WIDTH(16);
   AMF_WIDTH(32);
+#endif
 #undef AMF_WIDTH
 }
 
@@ -361,7 +375,7 @@ extern "C" long long amf_pmf_value_grad_smem_limit() { return kSmemLimit; }
 // and residuals in shared memory (they must fit), 0 leaves the factors in
 // global memory and takes e_scratch (L, nnz + 1). Strides are in elements; U
 // and Gu share u_*, V and Gv share v_*; each factor is contiguous, (rows, d)
-// or (d, rows) a lane.
+// or (d, rows) a lane. d must be a width this library takes (width_ok).
 extern "C" int amf_pmf_value_grad(
     int in_bf16, int out_bf16, int round_resid, int shared, const void* U,
     const void* V, const int32_t* row_ptr, const int32_t* col_idx,
@@ -372,8 +386,8 @@ extern "C" int amf_pmf_value_grad(
     long long u_lane, long long u_row, long long u_k, long long v_lane,
     long long v_row, long long v_k, void* stream) {
   if (L < 1 || L > 0x7fffffffLL || n < 1 || m < 1 || nnz < 0 ||
-      n > 0x7fffffffLL / 33 || m > 0x7fffffffLL / 33 ||
-      nnz >= 0x7fffffffLL || d < 1 || d > 32 ||
+      !width_ok(d) || n > 0x7fffffffLL / (d | 1) ||
+      m > 0x7fffffffLL / (d | 1) || nnz >= 0x7fffffffLL ||
       (!shared && e_scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{U, V, row_ptr, col_idx, r_row, col_ptr, row_idx, csc_pos, di, dj, dv,

@@ -38,6 +38,8 @@ import torch
 from amf_tpu_torch.models import pmf
 from amf_tpu_torch.ops.chol_kernel import chol_gram_solve_sample, tril_pairs
 from amf_tpu_torch.types import LaneCells, Problem
+from amf_tpu_torch.utils.linalg import cholesky_or_nan as _cholesky
+from amf_tpu_torch.utils.linalg import inverse_or_nan as _inverse
 from amf_tpu_torch.utils.rng import lane_gammas, lane_generators, lane_normals
 
 
@@ -67,27 +69,6 @@ def init_chain(pmf_state: pmf.PMFState) -> ChainState:
 
 # ---------------------------------------------------------------------------
 # Wishart / Gaussian-Wishart sampling
-
-
-def _nan_where_failed(out: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
-    """``out`` (..., d, d) of a ``torch.linalg.*_ex`` call, NaN where its
-    ``info`` reports a failed factorisation. ``jnp.linalg.cholesky`` gives
-    NaN there, and NaN is what reaches the scores and the finite-score
-    fallback of ``active/driver.py``; the ``_ex`` calls alone return
-    unchecked values.
-    Decided on the device: the host does not wait for ``info``."""
-    return torch.where((info > 0)[..., None, None], torch.nan, out)
-
-
-def _cholesky(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of A (..., d, d); NaN where A is not positive
-    definite."""
-    return _nan_where_failed(*torch.linalg.cholesky_ex(A))
-
-
-def _inverse(A: torch.Tensor) -> torch.Tensor:
-    """Inverse of A (..., d, d); NaN where A is singular."""
-    return _nan_where_failed(*torch.linalg.inv_ex(A))
 
 
 def _dof_shape(d: int, dof, like: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from amf_tpu_torch.ops.linesearch import (
     DescentInfo, _bcast, adaptive_descent, adaptive_descent_poly,
 )
 from amf_tpu_torch.types import LaneCells, Problem
+from amf_tpu_torch.utils.platform import resolve_device
 
 
 class PMFConfig(NamedTuple):
@@ -52,9 +53,12 @@ class PMFState:
 
 def init_state(
     generator: torch.Generator, n: int, m: int, cfg: PMFConfig,
-    problem: Optional[Problem] = None, dtype=torch.float32, device="cpu",
+    problem: Optional[Problem] = None, dtype=torch.float32, device=None,
 ) -> PMFState:
-    """Uniform(0, 1) factor init (reference: pmf.py:55-56)."""
+    """Uniform(0, 1) factor init (reference: pmf.py:55-56) on ``device``
+    (None: the card, ``utils.platform.resolve_device``); ``generator``
+    must live there."""
+    device = resolve_device(device)
     U = torch.rand((n, cfg.latent_d), generator=generator, dtype=dtype,
                    device=device)
     V = torch.rand((m, cfg.latent_d), generator=generator, dtype=dtype,
@@ -131,6 +135,16 @@ def log_likelihood(
         - _vdot(U, U) / (2 * state.sigma_u_sq)
         - _vdot(V, V) / (2 * state.sigma_v_sq)
     )
+
+
+def ll_prior_adjustment(state: PMFState, problem: Problem,
+                        cfg: PMFConfig) -> torch.Tensor:
+    """Variance-dependent normalization terms (reference: pmf.py:123-127)."""
+    n, m = problem.shape
+    d = cfg.latent_d
+    return -0.5 * (torch.log(state.sigma_sq) * problem.n_rated
+                   + n * d * torch.log(state.sigma_u_sq)
+                   + m * d * torch.log(state.sigma_v_sq))
 
 
 def gradient(
@@ -229,6 +243,55 @@ def fit(
         (U, V), info = adaptive_descent(
             (state.U, state.V), value_and_grad_fn, step_fn, **common)
     return dataclasses.replace(state, U=U, V=V), info
+
+
+def update_sigma(state: PMFState, problem: Problem,
+                 cfg: PMFConfig) -> PMFState:
+    """Type-II ML noise-variance update (reference: pmf.py:151-157)."""
+    err = torch.where(problem.rated,
+                      problem.R_obs - predicted_matrix(state, cfg), 0.0)
+    n_rated = problem.n_rated.clamp(min=1)
+    return dataclasses.replace(state, sigma_sq=(err * err).sum() / n_rated)
+
+
+def update_sigma_uv(state: PMFState, problem: Problem,
+                    cfg: PMFConfig) -> PMFState:
+    """Prior-variance updates (reference: pmf.py:159-177, with the item norm
+    from V as in pmf_cy.pyx:243)."""
+    n, m = problem.shape
+    d = cfg.latent_d
+
+    def update(norm2, rows, sigma_sq, mean, var):
+        if var > 0:
+            return norm2 / (rows * d + 2
+                            + 2 * (torch.log(sigma_sq) - mean) / var)
+        return norm2 / (rows * d)
+
+    return dataclasses.replace(
+        state,
+        sigma_u_sq=update((state.U * state.U).sum(), n, state.sigma_u_sq,
+                          cfg.sig_u_mean, cfg.sig_u_var),
+        sigma_v_sq=update((state.V * state.V).sum(), m, state.sigma_v_sq,
+                          cfg.sig_v_mean, cfg.sig_v_var))
+
+
+def fit_with_sigmas(
+    state: PMFState, problem: Problem, cfg: PMFConfig,
+    max_outer: int = 25, max_steps: Optional[int] = None,
+) -> PMFState:
+    """Alternate full factor fits with sigma updates until a fit accepts at
+    most one step or ``max_outer`` fits ran (the JAX package's loop; the
+    reference interleaves the updates inside its fit generator,
+    pmf.py:286-305, to the same type-II ML fixed point). The host reads
+    each fit's accept count."""
+    max_steps = cfg.max_fit_steps if max_steps is None else max_steps
+    for _ in range(max_outer):
+        state, info = fit(state, problem, cfg, max_steps=max_steps)
+        state = update_sigma_uv(update_sigma(state, problem, cfg), problem,
+                                cfg)
+        if int(info.n_accepts) <= 1:
+            break
+    return state
 
 
 POLY_RUNGS = 64  # rungs of the poly loop: lr down to min_lr from any lr

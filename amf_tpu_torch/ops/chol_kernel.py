@@ -28,10 +28,13 @@ substitutions, as the JAX reference has; the two differ only in rounding.
 with tensor operations and calls it.
 
 Dispatch (both): a CPU tensor goes to the plain version. A CUDA tensor goes
-to the kernel, in float32 or float64, for d <= 32; d > 32 raises there (the
-JAX dispatcher sends it to its plain version; here only a CPU tensor takes
-the plain version, at any d). ``kernel=False`` sends a CUDA tensor to the
-plain version on purpose, to compare the two on the same inputs.
+to the kernel, in float32 or float64, at any d: one library serves d <= 32,
+and a wider d builds a library for that d at its first use
+(``cuda_build.width_defines``). ``kernel=False`` sends a CUDA tensor to the
+plain version on purpose, to compare the two on the same inputs. Where a
+matrix is not positive definite the plain version gives NaN on its row, as
+``jnp.linalg.cholesky`` does and the kernel does (a square root of a
+negative pivot).
 """
 
 from __future__ import annotations
@@ -42,16 +45,24 @@ from typing import Optional, Tuple
 
 import torch
 
-MAX_D = 32
+from amf_tpu_torch.utils.linalg import cholesky_or_nan
+
 _SOURCE = "chol_solve_sample"
 
 
-@functools.cache
-def _entry_points():
-    """The kernel library's C functions by dtype (built at first use)."""
+def _entry_points(d: int):
+    """The C functions, by dtype, of the kernel library that takes width d
+    (built at first use)."""
     from amf_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load(_SOURCE)
+    return _library_fns(cuda_build.width_defines(_SOURCE, d))
+
+
+@functools.cache
+def _library_fns(defines):
+    from amf_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load(_SOURCE, defines)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fns = {}
     for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
@@ -68,9 +79,10 @@ def _entry_points():
 def chol_solve_sample_reference(
     S: torch.Tensor, rhs: torch.Tensor, z: torch.Tensor
 ) -> torch.Tensor:
-    """Plain version: S (..., d, d), rhs and z (..., d) -> (..., d)."""
+    """Plain version: S (..., d, d), rhs and z (..., d) -> (..., d); NaN on
+    the rows whose S is not positive definite."""
     chol_solve_sample_reference.calls += 1
-    L = torch.linalg.cholesky(S)
+    L = cholesky_or_nan(S)
     Lt = L.transpose(-1, -2)
     y = torch.linalg.solve_triangular(L, rhs.unsqueeze(-1), upper=False)
     mean = torch.linalg.solve_triangular(Lt, y, upper=True)
@@ -88,8 +100,9 @@ def chol_solve_sample_batch_minor(
 
     s_t (d*d, B) holds S_b(i, j) at row i*d + j; rhs_t and z_t are (d, B).
     All contiguous, on one CUDA device, one dtype (float32 or float64),
-    1 <= d <= 32. The output is allocated here; the launch goes on the
-    current stream and does not synchronise.
+    d >= 1 (above 32 from a library of that width). The output is
+    allocated here; the launch goes on the current stream and does not
+    synchronise.
     """
     if rhs_t.dim() != 2:
         raise ValueError(f"want rhs_t (d, B); got {tuple(rhs_t.shape)}")
@@ -108,13 +121,12 @@ def chol_solve_sample_batch_minor(
     if not (s_t.is_contiguous() and rhs_t.is_contiguous()
             and z_t.is_contiguous()):
         raise ValueError("want contiguous batch-minor buffers")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"chol_solve_sample kernel takes 1 <= d <= {MAX_D}; "
-                         f"got d={d}")
+    if d < 1:
+        raise ValueError(f"chol_solve_sample kernel takes d >= 1; got d={d}")
     out = torch.empty((d, B), dtype=s_t.dtype, device=s_t.device)
     if B == 0:
         return out
-    fn = _entry_points()[s_t.dtype]
+    fn = _entry_points(d)[s_t.dtype]
     stream = torch.cuda.current_stream(s_t.device).cuda_stream
     err = fn(s_t.data_ptr(), rhs_t.data_ptr(), z_t.data_ptr(), out.data_ptr(),
              B, d, stream)
@@ -151,8 +163,7 @@ def chol_solve_sample(
     """x = S^{-1} rhs + chol(S)^{-T} z for SPD S (..., d, d), rhs, z (..., d).
 
     A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
-    kernel (d <= 32, else it raises), or to the plain version when
-    ``kernel`` is False.
+    kernel, at any d, or to the plain version when ``kernel`` is False.
     """
     if S.device.type == "cpu" or (S.device.type == "cuda" and not kernel):
         return chol_solve_sample_reference(S, rhs, z)
@@ -220,7 +231,7 @@ def chol_gram_solve_sample_cuda(
     """Launch the Gram-fed CUDA kernel -> x (L, r, d), contiguous.
 
     Arguments as ``chol_gram_solve_sample``; all on one CUDA device in one
-    dtype, float32 or float64; Gt and mrt contiguous; 1 <= d <= 32. z (and,
+    dtype, float32 or float64; Gt and mrt contiguous; d >= 1. z (and,
     with cells, other) may have any lane stride but contiguous (rows, d)
     slabs. One launch on the current stream, no synchronisation; the output
     is allocated here.
@@ -255,9 +266,9 @@ def chol_gram_solve_sample_cuda(
                         + ", ".join(str(x.dtype) for x in floats))
     if not (Gt.is_contiguous() and mrt.is_contiguous()):
         raise ValueError("want contiguous Gt and mrt")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"chol_gram_solve_sample kernel takes 1 <= d <= "
-                         f"{MAX_D}; got d={d}")
+    if d < 1:
+        raise ValueError(f"chol_gram_solve_sample kernel takes d >= 1; got "
+                         f"d={d}")
 
     def slabs(x):  # contiguous (rows, d) a lane, any lane stride
         ok = x.stride(2) == 1 and x.stride(1) == d
@@ -281,7 +292,7 @@ def chol_gram_solve_sample_cuda(
                             dm.contiguous(), dr.contiguous())
         ptr.update(other=other.data_ptr(), row=row.data_ptr(),
                    col=col.data_ptr(), dm=dm.data_ptr(), dr=dr.data_ptr())
-    fn = _entry_points()[Gt.dtype, "gram"]
+    fn = _entry_points(d)[Gt.dtype, "gram"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(Gt.data_ptr(), mrt.data_ptr(), z.data_ptr(), alpha.data_ptr(),
              mu.data_ptr(), ptr["center"], ptr["other"], ptr["row"],
@@ -318,8 +329,7 @@ def chol_gram_solve_sample(
     only then.
 
     A CPU tensor goes to the plain version. A CUDA tensor goes to the CUDA
-    kernel (d <= 32, else it raises), or to the plain version when
-    ``kernel`` is False.
+    kernel, at any d, or to the plain version when ``kernel`` is False.
     """
     if Gt.device.type == "cpu" or (Gt.device.type == "cuda" and not kernel):
         fn = chol_gram_solve_sample_reference

@@ -4,8 +4,12 @@ Each kernel source ``amf_tpu_torch/csrc/<name>.cu`` exports a plain C
 interface. At first use it is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library under ``build/amf_tpu_torch/`` at the checkout root
 and loaded with ``ctypes``. A source may be built for one value of a
-parameter at a time (``defines``, as the fused line search is for its
-factor width): each set of defines is a library of its own. The library's
+parameter at a time (``defines``): each set of defines is a library of its
+own. ``width_defines`` gives each source its defines for a factor width d:
+up to ``BUCKETED_D`` the value+gradient, line-coefficient and Cholesky
+sources serve every d from one library (d bucketed, or one instantiation
+each), and a wider d gets a library built for that d at its first use; the
+fused line search is always one library a width. The library's
 file name carries a hash of the source and the flags, so an edited source
 is rebuilt and a stale library is never loaded. The build writes to a
 temporary file and renames it into place, so concurrent first uses cannot
@@ -24,6 +28,9 @@ import tempfile
 from pathlib import Path
 from typing import Tuple
 
+# widths the shared libraries of the non-fused sources take; above, one
+# library a width
+BUCKETED_D = 32
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "amf_tpu_torch"
 NVCC_FLAGS = (
@@ -85,3 +92,18 @@ def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
 def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name, defines)))
+
+
+def width_defines(name: str, d: int) -> Tuple[str, ...]:
+    """The defines of ``csrc/<name>.cu``'s library for factor width d.
+
+    ``AMF_ONLY_D=d`` builds a library that takes width d alone. The fused
+    line search is always built so, so that a row of d values is a register
+    array of exactly d; the other sources take every d <= ``BUCKETED_D``
+    from one library (no defines) and a wider d alone.
+    """
+    if d < 1:
+        raise ValueError(f"a factor width is >= 1; got d={d}")
+    if name == "pmf_lookahead_fused" or d > BUCKETED_D:
+        return (f"AMF_ONLY_D={d}",)
+    return ()

@@ -38,9 +38,13 @@ in float32 and rounds them to bf16 for the products only. The prior terms
 come from the caller's factors, or from the float32 proposal.
 
 Dispatch: a CPU tensor goes to the plain version, at any d. A CUDA tensor
-goes to the kernel, or raises: the CUDA kernels keep a row of d values in
-registers and take d <= 32 (the JAX kernels take any d). ``kernel=False``
-sends a CUDA tensor to the plain version on purpose, to compare the two.
+goes to the kernel, at any d, as the JAX kernels take any d: the kernels
+keep a row of d values in registers, so each source's library is built for
+its widths (``cuda_build.width_defines``): one library serves d <= 32 for
+the value+gradient and line-coefficient sources, and a wider d builds a
+library for that d at its first use; the fused line search is one library
+a width. ``kernel=False`` sends a CUDA tensor to the plain version on
+purpose, to compare the two.
 ``block_rows`` and ``lanes_per_block`` are the JAX signatures' TPU tiling;
 they are accepted and change nothing.
 """
@@ -54,9 +58,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from amf_tpu_torch.ops.cuda_build import width_defines
 from amf_tpu_torch.ops.linesearch import CHECK_EVERY
 
-MAX_D = 32
 _F32 = torch.float32
 _BF16 = torch.bfloat16
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -75,19 +79,10 @@ _SHAPE_ARGTYPES = {
 }
 
 
-def fused_defines(d: int) -> Tuple[str, ...]:
-    """The defines of ``csrc/pmf_lookahead_fused.cu``'s library for factor
-    width d: the source is built for one width at a time, so that a row of
-    d values is a register array of exactly d (the other sources bucket d
-    to 8, 16 or 32 and pay for the bucket's unused slots)."""
-    return (f"AMF_D={d}",)
-
-
 @functools.cache
-def _entry_point(source: str = "pmf_value_grad",
-                 defines: Tuple[str, ...] = ()):
-    """The C function of kernel library ``csrc/<source>.cu`` (built at
-    first use, with ``defines``)."""
+def _entry_point(source: str, defines: Tuple[str, ...]):
+    """The C function of kernel library ``csrc/<source>.cu`` built with
+    ``defines`` (``width_defines(source, d)``; built at first use)."""
     from amf_tpu_torch.ops import cuda_build
 
     fn = getattr(cuda_build.load(source, defines), "amf_" + source)
@@ -254,7 +249,7 @@ def pmf_value_grad_cuda(
 
     U and V on one CUDA device in one dtype, float32 or bfloat16; U is
     (L, n, d) and V (L, m, d), or (L, d, n) and (L, d, m) when
-    ``transposed``; 1 <= d <= 32. The kernel walks ``index``, the rated
+    ``transposed``; d >= 1. The kernel walks ``index``, the rated
     cells of (``rated``, R) in U's dtype; without one it is built here,
     which synchronises the host. Gradients come back in ``out_dtype``, in
     U's and V's layout; the variants are (float32 in and out), (bf16 in,
@@ -291,12 +286,9 @@ def pmf_value_grad_cuda(
                      (True, True, True)):
         raise TypeError(f"unsupported kernel variant: input {U.dtype}, "
                         f"output {out_dtype}, round_resid={round_resid}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"pmf_value_grad kernel takes 1 <= d <= {MAX_D}; "
-                         f"got d={d}")
-    if not (L >= 1 and n >= 1 and m >= 1):
-        raise ValueError(f"pmf_value_grad kernel takes L, n, m >= 1; got "
-                         f"L={L}, n={n}, m={m}")
+    if not (L >= 1 and n >= 1 and m >= 1 and d >= 1):
+        raise ValueError(f"pmf_value_grad kernel takes L, n, m, d >= 1; got "
+                         f"L={L}, n={n}, m={m}, d={d}")
     ix = _index_for(index, rated, R, U.dtype)
     U, V = U.contiguous(), V.contiguous()
     di = delta_i.long().contiguous()
@@ -306,8 +298,9 @@ def pmf_value_grad_cuda(
     gu = torch.empty(U.shape, dtype=out_dtype, device=dev)
     gv = torch.empty(V.shape, dtype=out_dtype, device=dev)
     sqerr = torch.empty((L,), dtype=_F32, device=dev)
-    fn = _entry_point()
-    shared = _fits_shared("pmf_value_grad", n, m, ix.nnz, d)
+    defines = width_defines("pmf_value_grad", d)
+    fn = _entry_point("pmf_value_grad", defines)
+    shared = _fits_shared("pmf_value_grad", n, m, ix.nnz, d, defines=defines)
     scratch = None if shared else torch.empty((L, ix.nnz + 1), dtype=_F32,
                                               device=dev)
     # element strides (lane, row, k) of each contiguous factor
@@ -463,7 +456,7 @@ def pmf_line_coeffs_cuda(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
     """Launch the CUDA kernel -> (L, 4) float32 [a2, a11, a12, a22].
 
     Ut, Gut (L, d, n), Vt, Gvt (L, d, m) on one CUDA device in one dtype,
-    float32 or bfloat16; 1 <= d <= 32. The kernel walks ``index``, the
+    float32 or bfloat16; d >= 1. The kernel walks ``index``, the
     rated cells of (``rated``, R) in that dtype, and reads neither the mask
     nor R; without an index it is built here, which synchronises the host.
     Every product and sum is float32. The gathered side's factor and
@@ -487,12 +480,9 @@ def pmf_line_coeffs_cuda(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
             x.dtype != Ut.dtype for x in (Vt, Gut, Gvt)):
         raise TypeError("want Ut, Vt, Gut, Gvt in one dtype, float32 or "
                         "bfloat16")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"pmf_line_coeffs kernel takes 1 <= d <= {MAX_D}; "
-                         f"got d={d}")
-    if not (L >= 1 and n >= 1 and m >= 1):
-        raise ValueError(f"pmf_line_coeffs kernel takes L, n, m >= 1; got "
-                         f"L={L}, n={n}, m={m}")
+    if not (L >= 1 and n >= 1 and m >= 1 and d >= 1):
+        raise ValueError(f"pmf_line_coeffs kernel takes L, n, m, d >= 1; got "
+                         f"L={L}, n={n}, m={m}, d={d}")
     ix = _index_for(index, rated, R, Ut.dtype)
     Ut, Vt, Gut, Gvt = (x.contiguous() for x in (Ut, Vt, Gut, Gvt))
     walked, gathered, ptr, idx, r, cell_w, cell_g = line_coeff_sides(
@@ -500,10 +490,11 @@ def pmf_line_coeffs_cuda(Ut, Vt, Gut, Gvt, R, rated, delta_i, delta_j,
         delta_j.long().contiguous())
     rows_w, rows_g = walked[0].shape[2], gathered[0].shape[2]
     dv = delta_v.to(_F32).contiguous()
-    shared = _fits_shared("pmf_line_coeffs", rows_g, d)
+    defines = width_defines("pmf_line_coeffs", d)
+    shared = _fits_shared("pmf_line_coeffs", rows_g, d, defines=defines)
     acc = torch.empty((L, 4), dtype=_F32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry_point("pmf_line_coeffs")(
+    err = _entry_point("pmf_line_coeffs", defines)(
         int(Ut.dtype == _BF16), int(shared), *(x.data_ptr() for x in (
             *walked, *gathered, ptr, idx, r, cell_w, cell_g, dv, acc)),
         L, rows_w, rows_g, d, stream)
@@ -642,10 +633,10 @@ def pmf_lookahead_fused_cuda(
     int32); the contract of ``pmf_lookahead_fused_plain``.
 
     Ut0 (d, n), Vt0 (d, m), R and ``rated`` (n, m) on one CUDA device;
-    1 <= d <= 32; every lane's cell inside the problem. The kernel walks
+    d >= 1; every lane's cell inside the problem. The kernel walks
     ``index`` (``rated_index`` of the problem in the streaming dtype);
     without one it is built here. The kernel's library is built for this d
-    at first use (``fused_defines``). One thread block runs one lane's whole
+    at first use (``width_defines``). One thread block runs one lane's whole
     line search, on two sets of (L, d, rows) state buffers allocated here
     (set 0 comes back as the result). The proposal's factors and the
     residuals go to shared memory where they fit a block, else the factors
@@ -665,13 +656,10 @@ def pmf_lookahead_fused_cuda(
                          f"{tuple(rated.shape)}")
     dev = _check_cuda("pmf_lookahead_fused", Ut0, Vt0, R, rated, delta_i,
                       delta_j, delta_v, sigmas, ls_params)
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"pmf_lookahead_fused kernel takes 1 <= d <= "
-                         f"{MAX_D}; got d={d}")
-    if not (L >= 1 and n >= 1 and m >= 1 and max_steps >= 0):
-        raise ValueError(f"pmf_lookahead_fused kernel takes L, n, m >= 1 "
+    if not (L >= 1 and n >= 1 and m >= 1 and d >= 1 and max_steps >= 0):
+        raise ValueError(f"pmf_lookahead_fused kernel takes L, n, m, d >= 1 "
                          f"and max_steps >= 0; got L={L}, n={n}, m={m}, "
-                         f"max_steps={max_steps}")
+                         f"d={d}, max_steps={max_steps}")
     if bool(((delta_i < 0) | (delta_i >= n) | (delta_j < 0)
              | (delta_j >= m)).any()):
         raise ValueError(f"pmf_lookahead_fused: a lane's cell lies outside "
@@ -690,7 +678,7 @@ def pmf_lookahead_fused_cuda(
     f = torch.empty((L,), dtype=_F32, device=dev)
     # evaluations and accepted proposals of every lane
     counts = torch.empty((L, 2), dtype=torch.int32, device=dev)
-    defines = fused_defines(d)
+    defines = width_defines("pmf_lookahead_fused", d)
     shared = _fits_shared("pmf_lookahead_fused", n, m, ix.nnz,
                           defines=defines)
     scratch = None if shared else torch.empty((L, ix.nnz + 1), dtype=_F32,

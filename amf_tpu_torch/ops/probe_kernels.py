@@ -4,9 +4,9 @@ whether a longer queue of lanes hides the fused refit's slowest lane.
 
     python -m amf_tpu_torch.ops.probe_kernels [--out results.json]
 
-1. ``ptxas -v`` of every source of ``csrc/`` as the package builds it:
-   registers a thread, spills and static shared memory of every
-   instantiation.
+1. ``ptxas -v`` of every source of ``csrc/`` as the package builds it for
+   d = 10 and for d = 48 (a library of that one width): registers a
+   thread, spills and static shared memory of every instantiation.
 2. ``csrc/chol_solve_sample.cu`` at d = 10 only, built once per (threads a
    block, minimum blocks an SM, z and x staged through shared memory or
    not) setting with its copy-only twins
@@ -25,6 +25,15 @@ whether a longer queue of lanes hides the fused refit's slowest lane.
    queue's evaluations. A launch ends with its slowest lane; with more
    lanes than SMs a finished lane's SM takes the next lane. A figure only:
    the tile width is the caller's.
+4. The three PMF kernels at d = 48 (``--wide-only`` runs this section
+   alone), at the shapes the d = 48 main paths of ``chip_smoke.py`` give
+   them on 943 x 1682 (value+gradient (L, rows, d) at the CLI tile's 128
+   lanes; (L, d, rows), the line coefficients and the fused line search,
+   8 steps, at the refit tile's 8 lanes; both dtypes) and on a 97 x 131
+   problem whose lanes fit shared memory: ``ptxas -v`` of each library,
+   the wrapper's CUDA-event time, the launch's device time by the
+   profiler, and a hash of the outputs, so that two builds of a source can
+   be held bit for bit against each other.
 
 Prints one JSON line per result; needs a CUDA card and nvcc.
 """
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import re
 import subprocess
@@ -47,6 +57,7 @@ from amf_tpu_torch.ops import cuda_build
 SOURCES = ("pmf_value_grad", "chol_solve_sample", "pmf_line_coeffs",
            "pmf_lookahead_fused")
 L, R, D = 160, 1682, 10
+WIDE_D = 48  # a width above the shared libraries' 32
 P = D * (D + 1) // 2
 R_ALIGNED = 1696  # the next multiple of 32 rows: every stream 128-byte aligned
 # (threads a block, minimum blocks an SM, z and x staged through shared memory)
@@ -87,14 +98,13 @@ def ptxas(source: str, defines=(), out=None):
     return rows
 
 
-def summary(source: str):
-    from amf_tpu_torch.ops import pmf_kernels as pk
-
-    # the fused line search is built for one factor width a library
-    fused = source == "pmf_lookahead_fused"
-    rows = ptxas(source, pk.fused_defines(D) if fused else ())
+def summary(source: str, d: int = D):
+    """``ptxas -v`` of the library of ``source`` that takes width d."""
+    defines = cuda_build.width_defines(source, d)
+    rows = ptxas(source, defines,
+                 cuda_build.BUILD_DIR / "probe" / f"{source}-d{d}.so")
     spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
-    return dict(source=source, kernels=len(rows),
+    return dict(source=source, d=d, defines=defines, kernels=len(rows),
                 registers_min=min(r["registers"] for r in rows),
                 registers_max=max(r["registers"] for r in rows),
                 spilled=[(r["kernel"][-40:], r["registers"],
@@ -124,7 +134,7 @@ def build_setting(setting):
     out = (cuda_build.BUILD_DIR / "probe"
            / f"chol_{threads}_{min_blocks}_{int(staged)}.so")
     defines = [f"AMF_CHOL_THREADS={threads}",
-               f"AMF_CHOL_MIN_BLOCKS={min_blocks}", f"AMF_CHOL_ONLY_D={D}",
+               f"AMF_CHOL_MIN_BLOCKS={min_blocks}", f"AMF_ONLY_D={D}",
                "AMF_CHOL_PROBE"] + ["AMF_CHOL_STAGED_ZX"] * staged
     return out, ptxas("chol_solve_sample", defines, out)
 
@@ -248,19 +258,115 @@ def fused_queue(run, lanes=1024, tile=128):
                 evals_max_by_tile=evals.max(dim=1).values.tolist())
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default=None, help="also write the results here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("probe_kernels: no CUDA device", file=sys.stderr)
-        return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(card, flush=True)
-    results = dict(card=card, ptxas=[], chol=[])
-    dev = torch.device("cuda")
+def device_ms(fn, name_part: str, reps: int = 10) -> float:
+    """Mean device time in ms of the kernels whose name holds ``name_part``
+    over ``reps`` calls of ``fn``, by the profiler: the launch alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name_part in e.key]
+    seen = sum(e.count for e in hits)
+    if not seen:
+        raise RuntimeError(f"the profiler saw no {name_part} launch")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / seen
+
+
+def outputs_hash(out) -> str:
+    """sha256 of a launch's outputs' bytes (tensors in order)."""
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def wide_kernels(dev):
+    """Section 4: the PMF kernels at d = 48, one row a (kernel, shape,
+    dtype)."""
+    from amf_tpu_torch.models import pmf
+    from amf_tpu_torch.ops import pmf_kernels as pk
+
+    d = WIDE_D
+    # the wrappers by the part of their kernels' names the profiler shows
+    wrappers = {"value_grad": pk.pmf_value_grad_cuda,
+                "line_coeffs": pk.pmf_line_coeffs_cuda,
+                "fused": pk.pmf_lookahead_fused_cuda}
+    gen = torch.Generator(device=dev).manual_seed(48)
+    cfg = pmf.PMFConfig(latent_d=d)
+    sig = torch.tensor([0.9, 10.0, 10.0], device=dev)
+    ls = torch.tensor([cfg.learning_rate, cfg.stop_thresh,
+                       cfg.min_learning_rate], device=dev)
+    rows = []
+    for shape, (n, m, density) in (("full", (943, R, 4980 / (943 * R))),
+                                   ("small", (97, 131, 0.1))):
+        rated = torch.rand(n, m, generator=gen, device=dev) < density
+        Rm = torch.randint(1, 6, (n, m), generator=gen,
+                           device=dev).float() * rated
+        free = torch.nonzero(~rated)
+        for bf16 in (False, True):
+            io = torch.bfloat16 if bf16 else torch.float32
+            index = pk.rated_index(rated, Rm, bf16=bf16)
+
+            def fac(*size):
+                return (0.2 * torch.rand(*size, generator=gen,
+                                         device=dev)).to(io)
+
+            def cells(L):
+                pick = free[torch.randperm(len(free), generator=gen,
+                                           device=dev)[:L]]
+                dv = torch.randint(1, 6, (L,), generator=gen,
+                                   device=dev).float()
+                return pick[:, 0].contiguous(), pick[:, 1].contiguous(), dv
+
+            cases = []
+            for transposed, L in ((False, 128), (True, 8)):
+                if bf16 and not transposed:
+                    continue  # the CLI tile streams float32
+                di, dj, dv = cells(L)
+                U, V = ((fac(L, d, k) if transposed else fac(L, k, d))
+                        for k in (n, m))
+                args = (U, V, Rm.to(io), rated, di, dj, dv, sig)
+                kw = dict(transposed=transposed, round_resid=bf16,
+                          out_dtype=io if transposed else torch.float32,
+                          index=index)
+                cases.append((
+                    "pmf_value_grad " + ("(L,d,rows)" if transposed
+                                         else "(L,rows,d)"), L, "value_grad",
+                    lambda a=args, k=kw: pk.pmf_value_grad_cuda(*a, **k)))
+            di, dj, dv = cells(8)
+            lc = (*(fac(8, d, k) for k in (n, m, n, m)), Rm.to(io), rated,
+                  di, dj, dv)
+            cases.append(("pmf_line_coeffs", 8, "line_coeffs",
+                          lambda a=lc: (pk.pmf_line_coeffs_cuda(
+                              *a, index=index),)))
+            fu = (fac(d, n).float(), fac(d, m).float(), Rm, rated, di, dj,
+                  dv, sig, ls, 8, bf16)
+            cases.append(("pmf_lookahead_fused (8 steps)", 8, "fused",
+                          lambda a=fu: pk.pmf_lookahead_fused_cuda(
+                              *a, index=index)))
+            for name, L, part, fn in cases:
+                before = dict(wrappers[part].variants)
+                out = fn()
+                variant = next(k for k, v in wrappers[part].variants.items()
+                               if v != before.get(k, 0))
+                row = dict(kernel=name, shape=shape, n=n, m=m, d=d, L=L,
+                           dtype=str(io).split(".")[1], variant=variant,
+                           outputs=outputs_hash(out), ms=cuda_ms(fn, 10),
+                           device_ms=device_ms(fn, part))
+                rows.append(row)
+                print("wide " + json.dumps(row), flush=True)
+    return rows
+
+
+def probe_sections_1_to_3(dev, results):
+    """Sections 1 to 3 of the module docstring, into ``results``."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape):
@@ -284,7 +390,8 @@ def main(argv=None) -> int:
         torch.empty(D, L * R, device=dev), Gt, rand(L, D, R), rand(L, R, D),
         alpha, rand(L, D), torch.empty(L, R, D, device=dev))
     with ThreadPoolExecutor(6) as pool:
-        futs = [pool.submit(summary, s) for s in SOURCES]
+        futs = [pool.submit(summary, s, d) for d in (D, WIDE_D)
+                for s in SOURCES]
         # build every setting first (in parallel), then time one at a time
         builds = list(pool.map(build_setting, SETTINGS))
         for setting, (out, rows) in zip(SETTINGS, builds):
@@ -297,6 +404,36 @@ def main(argv=None) -> int:
             print("ptxas " + json.dumps(row), flush=True)
     results["fused_queue"] = fused_queue(fused_workload(dev))
     print("fused_queue " + json.dumps(results["fused_queue"]), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="also write the results here")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="run section 4 (the PMF kernels at d = 48) alone, "
+                         "with ptxas -v of their d = 48 libraries")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("probe_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    results = dict(card=card, ptxas=[], chol=[])
+    dev = torch.device("cuda")
+    if args.wide_only:
+        pmf_sources = SOURCES[:1] + SOURCES[2:]
+        with ThreadPoolExecutor(6) as pool:
+            futs = [pool.submit(summary, s, WIDE_D) for s in pmf_sources]
+            list(pool.map(lambda s: cuda_build.build(
+                s, cuda_build.width_defines(s, WIDE_D)), pmf_sources))
+            for f in futs:
+                results["ptxas"].append(f.result())
+                print("ptxas " + json.dumps(results["ptxas"][-1]), flush=True)
+    else:
+        probe_sections_1_to_3(dev, results)
+    results["wide"] = wide_kernels(dev)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

@@ -30,9 +30,10 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--latent-d", "-D", type=int, default=5,
-                        help="factor width; on the card the CUDA kernels take "
-                             "d <= 32 and a wider d raises (--device cpu "
-                             "runs any width)")
+                        help="factor width, any d on the card and on the CPU: "
+                             "the CUDA kernels take d <= 32 from libraries "
+                             "built at first use, and a wider d builds a "
+                             "library of its own at its first use")
     parser.add_argument("--steps", "-s", type=int, default=None)
     parser.add_argument("--discrete", action="store_true", default=None)
     parser.add_argument("--no-discrete", action="store_false", dest="discrete")

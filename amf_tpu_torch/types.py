@@ -5,7 +5,10 @@ boolean masks; adding a rating is an update that returns a new Problem.
 
 The lookahead fans one refit and one chain out per hypothesised rating.
 Those lanes do not copy the problem: they share the base ``Problem`` and
-carry only their own cell, value and mean rating (``LaneCells``).
+carry only their own cell, value and mean rating (``LaneCells``). Where a
+lane's model needs its whole problem (the variational approximations'
+KL and statistics), ``LaneCells.problems`` gives each lane its own
+(n, m) masks, a Problem with a leading lane dimension.
 """
 
 from __future__ import annotations
@@ -16,10 +19,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from amf_tpu_torch.utils.platform import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Problem:
     """Dense masked view of an active matrix-completion problem.
+
+    Every field may carry leading lane dimensions, (..., n, m); ``shape``
+    is (n, m) and the counts are per lane.
 
     Attributes:
       R_obs:     (n, m) float. Observed value of every rated cell; arbitrary
@@ -37,16 +45,16 @@ class Problem:
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return tuple(self.R_obs.shape)
+        return tuple(self.R_obs.shape[-2:])
 
     @property
     def n_rated(self) -> torch.Tensor:
-        return self.rated.sum()
+        return self.rated.sum(dim=(-2, -1))
 
     def mean_rating(self) -> torch.Tensor:
         """Mean of the observed ratings (reference: pmf.py:45,90)."""
-        cnt = self.rated.sum().clamp(min=1)
-        return torch.where(self.rated, self.R_obs, 0.0).sum() / cnt
+        cnt = self.rated.sum(dim=(-2, -1)).clamp(min=1)
+        return torch.where(self.rated, self.R_obs, 0.0).sum(dim=(-2, -1)) / cnt
 
     def add_rating(self, i, j, value) -> "Problem":
         """A new Problem with ``value`` recorded for cell (i, j)."""
@@ -98,6 +106,25 @@ class LaneCells:
         cnt = problem.rated.sum().to(self.v.dtype)
         return (total + dr) / (cnt + dm).clamp(min=1)
 
+    def problems(self, problem: Problem) -> Problem:
+        """Every lane's own problem, (L, n, m) each field: the base with
+        the lane's cell rated at its value and no longer queryable
+        (``Problem.add_rating`` of every lane at once); ``test`` is shared."""
+        L = len(self)
+        lane = torch.arange(L, device=self.i.device)
+        shape = (L,) + problem.shape
+
+        def copy(x):
+            return x.expand(shape).clone()
+
+        R_obs, rated, queryable = (copy(problem.R_obs), copy(problem.rated),
+                                   copy(problem.queryable))
+        R_obs[lane, self.i, self.j] = self.v.to(R_obs.dtype)
+        rated[lane, self.i, self.j] = True
+        queryable[lane, self.i, self.j] = False
+        return Problem(R_obs=R_obs, rated=rated, queryable=queryable,
+                       test=problem.test.expand(shape))
+
 
 def problem_from_dense(
     real: np.ndarray,
@@ -106,14 +133,15 @@ def problem_from_dense(
     test: Optional[np.ndarray] = None,
     dtype=torch.float32,
     zeros_unknowable: bool = True,
-    device="cpu",
+    device=None,
 ) -> Problem:
     """Build a Problem from a dense matrix + initially-known mask.
 
     Cells with value NaN (and 0, unless ``zeros_unknowable`` is False) are
     unknowable; queryable defaults to knowable-and-not-known, test to all
     knowable cells. An explicit held-out ``test`` mask is excluded from the
-    query pool (reference: python-pmf/bayes_pmf.py:739-772).
+    query pool (reference: python-pmf/bayes_pmf.py:739-772). ``device``
+    None means the card (``utils.platform.resolve_device``).
     """
     real = np.asarray(real, dtype=np.float64)
     known = np.asarray(known, dtype=bool)
@@ -131,6 +159,8 @@ def problem_from_dense(
 
 
 def _problem(r_obs, rated, queryable, test, dtype, device) -> Problem:
+    device = resolve_device(device)
+
     def mask(x):
         return torch.as_tensor(np.asarray(x, dtype=bool), device=device)
 
@@ -157,12 +187,13 @@ def problem_from_ratings(
     real: Optional[np.ndarray] = None,
     test: Optional[np.ndarray] = None,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> Problem:
     """Build a Problem from the reference's (k, 3) ratings array.
 
     If ``real`` is given, unknowable cells (0 / NaN in ``real``) are excluded
-    from the queryable set (reference: active_pmf.py:1217-1219).
+    from the queryable set (reference: active_pmf.py:1217-1219). ``device``
+    None means the card.
     """
     ratings = np.asarray(ratings, dtype=np.float64)
     if shape is None:

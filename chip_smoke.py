@@ -11,14 +11,20 @@ hand-written kernel of them against its plain PyTorch version on the card:
   * the PMF-refit lookahead (``fit_lookahead_batch``, tiles of 128 lanes)
     and its ``add_rmse_boosts`` CLI, through the value+gradient kernel;
     its poly-LS epoch loop through the value+gradient and line-coefficient
-    kernels; its fused branch through the whole-line-search kernel.
+    kernels; its fused branch through the whole-line-search kernel;
+  * the same paths at factor width d = 48, above the 32 that one library of
+    each source serves, through libraries built for that width;
+  * the variational ActivePMF lookahead at the shape of ``bench.py``'s vn
+    workload (24 x 24, d = 2), its active loop (vn and mn) and the port's
+    ``entry()`` step; this path runs PyTorch's linear algebra and no
+    hand-written kernel.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure):
   1. environment and kernel builds (one nvcc per library, in parallel, at
-     first use, into build/; the fused line search is one library a factor
-     width);
+     first use, into build/: every source for d <= 32 and for d = 48, the
+     fused line search one library a factor width), each nvcc's seconds;
   2. Cholesky kernel vs plain version, both entry points: S given, at the
      main path's batch sizes and at other d; fed from the Gram, at the main
      path's two row draws (160 lanes, r = 943 and 1682), ragged and at
@@ -52,12 +58,30 @@ Phases (each raises on failure):
      vs the unfused kernel path (one index build a refit), and the kernel's
      own outputs (per lane the evaluations, neg_ll and the factors) vs the
      plain version's, bit for bit over two runs, with wrapper and device
-     times; its global-memory variant at d=32; and, as a figure, the rank
+     times; its global-memory variant at d=32 and d=48, its shared-memory
+     variant at d=48 on a 97 x 131 problem; and, as a figure, the rank
      correlation of the float32 boosts of phase 8's pool against a float64
      plain refit.
-The launch counts are reset before phases 3, 7, 8, 10 and 11 and read
-after phases 4, 7, 8, 10 and 11, before the comparisons with the plain
-versions; phases 7, 8 and 10 also count the index builds (one a refit).
+ 12. d = 48: one add_rmse_boosts -D 48 tile (128 lanes), a 10-lane Gibbs
+     lookahead tile, one poly-LS and one fused refit tile of 8 lanes in
+     float32 and in bfloat16, each launching its kernels and no plain
+     version (phases 2, 6, 9 and 11 hold each kernel against its plain
+     version at d = 48 at these lane counts: B1 at both row draws, B4 at
+     128 lanes, B2, B3 and B5 at 8);
+ 13. the vn lookahead, bench.py's vn workload (total-variance, 50 + 50
+     refit steps, 8 nodes, tiles of 64 candidates, f32): every candidate
+     with cov_param="chol", one tile with "psd-project" and its host-side
+     split (eigh, slogdet, autograd, the lane refit), a 4-candidate chol
+     tile's device split; every score finite;
+ 14. float64 tiles of total-variance and pred-entropy-bound-approx on the
+     card and on the CPU from the same inputs and lane noise, <= 1e-8;
+ 15. run_active_pmf: 3 records for vn (pred-variance, total-variance) and 2
+     for mn (pred-variance, total-variance-approx, on a 12 x 12 problem);
+ 16. the port's entry() step.
+The launch counts are reset before phases 3, 7, 8, 10, 11 and each run of
+12, and read after phases 4, 7, 8, 10, 11 and each run of 12, before the
+comparisons with the plain versions; phases 7, 8 and 10 also count the
+index builds (one a refit).
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -140,6 +164,31 @@ POLY_LADDER_STEPS = 40
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
+# a factor width above the 32 that one library of each source serves: its
+# kernels come from libraries built for it; its Gibbs tile (candidates,
+# chains) and its refit tiles' lanes
+WIDE_D = 48
+WIDE_GIBBS_CAND, WIDE_GIBBS_BASE, WIDE_GIBBS_LANE = 2, 16, 4
+WIDE_REFIT_LANES = 8
+# the vn workload of bench.py:184-250: 24 x 24, rank and d 2, mask 0.2,
+# PMF fit 200 steps, base KL fit 100, lane refits 50 + 50 steps, 8
+# Gauss-Legendre nodes, tiles of 64 candidates, total-variance, float32
+VN_N, VN_D, VN_MASK = 24, 2, 0.2
+VN_PMF_STEPS, VN_FIT_STEPS, VN_REFIT_STEPS = 200, 100, 50
+VN_NODES, VN_TILE = 8, 64
+VN_MN_N = 12
+# card against CPU in float64: the same inputs and lane noise, the same
+# operations in other kernels' orders; tiles of 8 and 4 candidates
+VN_F64_TILE, VN_PEB_TILE, VN_F64_RTOL = 8, 4, 1e-8
+
+
+START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """A phase's start, in seconds since the script began."""
+    print(f"phase-start {phase} at {time.perf_counter() - START:.1f} s",
+          flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -188,7 +237,7 @@ def kernel_rows(device):
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
     cases = [(150880, 10), (269120, 10), (4097, 1), (4097, 5), (4097, 20),
-             (4097, 32)]
+             (4097, 32), (4097, WIDE_D)]
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[1]
         for B, d in cases:
@@ -204,6 +253,10 @@ def kernel_rows(device):
             ms = cuda_ms(lambda: ck.chol_solve_sample_cuda(S, rhs, z), 20)
             plain_ms = cuda_ms(
                 lambda: ck.chol_solve_sample_reference(S, rhs, z), 5)
+            # S's lower triangle, b, z in and x out; d^3/3 + 2 d^2 flops
+            bms, bby = bound_ms(
+                (d * (d + 1) // 2 + 3 * d) * S.element_size() * B,
+                (d ** 3 / 3 + 2 * d ** 2) * B, name)
             # the launch alone, on buffers already in the kernel's layout
             s_t = S.reshape(B, d * d).t().contiguous()
             rhs_t, z_t = rhs.t().contiguous(), z.t().contiguous()
@@ -211,7 +264,8 @@ def kernel_rows(device):
                 lambda: ck.chol_solve_sample_batch_minor(s_t, rhs_t, z_t), 20)
             row = dict(dtype=name, B=B, d=d, max_abs_err=max_abs,
                        scaled_err=scaled, tol=KERNEL_TOL[name], ms=ms,
-                       launch_only_ms=launch_ms, plain_ms=plain_ms)
+                       launch_only_ms=launch_ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=bby)
             rows.append(row)
             print("kernel-check " + json.dumps(row), flush=True)
             check(math.isfinite(scaled) and scaled <= KERNEL_TOL[name],
@@ -257,11 +311,15 @@ def gram_rows(device):
     gen = torch.Generator(device=device).manual_seed(2)
     beta = 2.0
     lanes = TILE * len(VALS)
-    # (L, r, c, d, center, cells, timed)
+    # (L, r, c, d, center, cells, timed): True times the entry both ways,
+    # "light" times the wrapper and the plain version only
+    wide_lanes = WIDE_GIBBS_CAND * len(VALS)  # phase 12's Gibbs tile
     cases = [(lanes, N, M, D, True, True, True),
              (lanes, M, N, D, True, True, True),
-             (3, 301, 64, D, True, True, False)]
-    cases += [(5, 301, 64, d, ce, cl, False) for d in (1, 5, 20, 32)
+             (3, 301, 64, D, True, True, False),
+             (wide_lanes, N, M, WIDE_D, True, True, "light"),
+             (wide_lanes, M, N, WIDE_D, True, True, "light")]
+    cases += [(5, 301, 64, d, ce, cl, False) for d in (1, 5, 20, 32, WIDE_D)
               for ce, cl in ((True, True), (False, False))]
     cases += [(5, 301, 64, D, True, False, False),
               (5, 301, 64, D, False, True, False)]
@@ -307,13 +365,14 @@ def gram_rows(device):
                     lambda: ck.chol_gram_solve_sample(*args), 20)
                 row_out["plain_ms"] = cuda_ms(
                     lambda: ck.chol_gram_solve_sample(*args, kernel=False), 3)
-                row_out["device_ms"] = kernel_device_ms(
-                    lambda: ck.chol_gram_solve_sample(*args),
-                    "chol_gram_kernel")
                 p = d * (d + 1) // 2
                 row_out["bound_ms"], row_out["bound_by"] = bound_ms(
                     (p + 4 * d) * z.element_size() * L * r,
                     (d ** 3 / 3 + 2 * d ** 2 + 2 * p + 4 * d) * L * r, name)
+            if timed is True:
+                row_out["device_ms"] = kernel_device_ms(
+                    lambda: ck.chol_gram_solve_sample(*args),
+                    "chol_gram_kernel")
                 # from the Gram products to x: earlier way, new, new, earlier
                 sr = (mask, masked_r, other, mu, alpha, beta, z)
 
@@ -444,19 +503,24 @@ def value_grad_rows(device, R, rated):
     small_R = torch.randint(1, 6, (37, 53), generator=gen,
                             device=device).float()
     small_rated = torch.rand(37, 53, generator=gen, device=device) < 0.3
-    for d in (1, 5, 32):
+    for d in (1, 5, 32, WIDE_D):
         for bf16, tr in variants:
             rows.append(value_grad_case(pk, small_R, small_rated, 5, d, bf16,
                                         tr, gen, False))
     check(all(r["factors_in"] == "shared" for r in rows),
           "a case that fits shared memory took the global-memory variant")
     # at d = 32 a lane's factors (336 KB) do not fit a block's shared memory:
-    # the same walk on the factors in global memory
-    for bf16, tr in ((False, False), (True, True)):
-        row = value_grad_case(pk, R, rated, 8, 32, bf16, tr, gen, True)
-        check(row["factors_in"] == "global",
-              f"d = 32 at full shape did not take the global variant: {row}")
-        rows.append(row)
+    # the same walk on the factors in global memory; d = 48 from a library
+    # of that width, at the lanes phase 12 gives each layout: the CLI tile's
+    # for (L, rows, d), the refit tile's for (L, d, rows)
+    for d in (32, WIDE_D):
+        for bf16, tr in ((False, False), (True, True)) if d == 32 else variants:
+            L = CLI_TILE if d == WIDE_D and not tr else WIDE_REFIT_LANES
+            row = value_grad_case(pk, R, rated, L, d, bf16, tr, gen, True)
+            check(row["factors_in"] == "global",
+                  f"d = {d} at full shape did not take the global variant: "
+                  f"{row}")
+            rows.append(row)
     return rows
 
 
@@ -500,15 +564,19 @@ def kernel_device_ms(fn, name_part: str, reps: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name_part in e.key]
     # the profiler may drop a launch at the window's edge: average over those
-    # it recorded
-    seen = sum(e.count for e in hits)
+    # it recorded. Now and then it records no kernel of a window at all:
+    # then the window is profiled again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name_part in e.key]
+        seen = sum(e.count for e in hits)
+        if seen:
+            break
     check(0 < seen <= reps,
           f"profiler saw {[(e.key, e.count) for e in hits]} for {name_part}")
     return sum(e.self_device_time_total for e in hits) / 1e3 / seen
@@ -647,7 +715,7 @@ def coeff_rows(pk, rst, prob, di, dj, dv, sig, device):
         cdv = torch.randint(1, 6, (L,), generator=gen, device=device).float()
         return (*fac, R, rated, cdi, cdj, cdv, csig)
 
-    for d in (3, 16, 32):
+    for d in (3, 16, 32, WIDE_D):
         for n, m in ((13, 9), (9, 13)):
             for bf16 in (False, True):
                 R = torch.randint(1, 6, (n, m), generator=gen,
@@ -659,15 +727,389 @@ def coeff_rows(pk, rst, prob, di, dj, dv, sig, device):
                       and row["lanes_on_rated_cells"] >= 1, f"{row}")
                 rows.append(row)
     # at d = 32 the 943 rows' factor and direction (249 KB) do not fit a
-    # block's shared memory: the same walk on them in global memory
-    for bf16 in (False, True):
-        row = coeff_case(pk, random_case(8, N, M, 32, prob.R_obs, prob.rated,
-                                         0.3), bf16, True)
-        check(row["factors_in"] == "global"
-              and row["lanes_on_rated_cells"] >= 1,
-              f"d = 32 at full shape did not take the global variant: {row}")
-        rows.append(row)
+    # block's shared memory: the same walk on them in global memory; d = 48
+    # from a library of that width
+    for d in (32, WIDE_D):
+        for bf16 in (False, True):
+            row = coeff_case(pk, random_case(WIDE_REFIT_LANES, N, M, d,
+                                             prob.R_obs, prob.rated, 0.3),
+                             bf16, True)
+            check(row["factors_in"] == "global"
+                  and row["lanes_on_rated_cells"] >= 1,
+                  f"d = {d} at full shape did not take the global variant: "
+                  f"{row}")
+            rows.append(row)
     return rows
+
+
+def wide_main_paths(device, prob, real, knowable, rng, work):
+    """Phase 12: the main paths at d = 48, through the libraries built for
+    that width: one ``add_rmse_boosts -D 48`` tile, a few lanes of the
+    Gibbs lookahead, and one poly-LS and one fused refit tile in each
+    dtype. The launch counts are reset before each and read after; no
+    plain version may run. Returns each run's launches by kernel."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch.data.loaders import save_npz_schema
+    from amf_tpu_torch.models import bpmf_gibbs, pmf
+    from amf_tpu_torch.ops import chol_kernel as ck
+    from amf_tpu_torch.ops import pmf_kernels as pk
+    from amf_tpu_torch.run import add_rmse_boosts
+    from amf_tpu_torch.types import rating_bounds
+    from amf_tpu_torch.utils.rng import generator
+
+    d = WIDE_D
+    out = {}
+
+    def reset():
+        ck.chol_gram_solve_sample_cuda.launches = 0
+        ck.chol_solve_sample_reference.calls = 0
+        for k in (pk.pmf_value_grad_cuda, pk.pmf_line_coeffs_cuda,
+                  pk.pmf_lookahead_fused_cuda):
+            k.launches.clear()
+        pk.pmf_value_grad_plain.calls = pk.pmf_line_coeffs_plain.calls = 0
+        pk.pmf_lookahead_fused_plain.calls = 0
+
+    def no_plain(what):
+        check(ck.chol_solve_sample_reference.calls == 0
+              and pk.pmf_value_grad_plain.calls == 0
+              and pk.pmf_line_coeffs_plain.calls == 0
+              and pk.pmf_lookahead_fused_plain.calls == 0,
+              f"a plain version ran on the d = {d} {what}")
+
+    # the add_rmse_boosts CLI, one tile of 128 lanes
+    known_np = prob.rated.cpu().numpy()
+    pool = np.zeros(N * M, bool)
+    pool[rng.choice(np.flatnonzero(knowable & ~known_np), size=CLI_TILE,
+                    replace=False)] = True
+    pool = pool.reshape(N, M)
+    data_path, out_path = work / "boosts48_data.npz", work / "boosts48.pkl"
+    save_npz_schema(str(data_path), {"_real": real, "_known": known_np,
+                                     "_test_on": knowable & ~known_np & ~pool})
+    reset()
+    t0 = time.perf_counter()
+    add_rmse_boosts.main(["--load-data", str(data_path), "-D", str(d),
+                          "--tile", str(CLI_TILE), "--out", str(out_path)])
+    torch.cuda.synchronize()
+    with open(out_path, "rb") as f:
+        boosts = pickle.load(f)["boosts"]
+    launches = pk.pmf_value_grad_cuda.launches[("L,rows,d", "torch.float32")]
+    out["cli"] = dict(s=time.perf_counter() - t0, b4_launches=launches,
+                      boosts_finite=int(np.isfinite(boosts).sum()))
+    check(launches > 0, f"the d = {d} CLI tile never launched B4")
+    check(bool((np.isfinite(boosts) == pool).all()),
+          f"d = {d} boosts not finite exactly on the pool")
+    no_plain("CLI tile")
+
+    # the Gibbs exp-variance lookahead: 2 candidates x 5 values
+    pcfg = pmf.PMFConfig(latent_d=d, subtract_mean=True)
+    gcfg = bpmf_gibbs.GibbsConfig(latent_d=d, subtract_mean=True)
+    pst = pmf.init_state(generator(48, device), N, M, pcfg, prob,
+                         dtype=torch.float32, device=device)
+    pst, _ = pmf.fit(pst, prob, pcfg, max_steps=100)
+    reset()
+    t0 = time.perf_counter()
+    _, stats, _ = bpmf_gibbs.run_chain(
+        bpmf_gibbs.init_chain(pst), prob, gcfg, WIDE_GIBBS_BASE,
+        generator=generator(49, device),
+        value_bounds=tuple(rating_bounds(VALS)))
+    cand = torch.nonzero(prob.queryable.flatten())[:WIDE_GIBBS_CAND, 0]
+    scores = bpmf_gibbs.exp_variance_scores(
+        3, pst, prob, pcfg, gcfg, stats, VALS, num_samps=WIDE_GIBBS_LANE,
+        fit_budget=50, cand=cand, n_base_samples=WIDE_GIBBS_BASE,
+        poly_ls=True)
+    torch.cuda.synchronize()
+    out["gibbs"] = dict(s=time.perf_counter() - t0,
+                        b1_launches=ck.chol_gram_solve_sample_cuda.launches,
+                        scores=scores.tolist())
+    check(bool(torch.isfinite(scores).all()),
+          f"non-finite d = {d} Gibbs scores {scores}")
+    check(ck.chol_gram_solve_sample_cuda.launches > 0,
+          f"the d = {d} Gibbs tile never launched B1")
+    no_plain("Gibbs tile")
+
+    # one poly-LS and one fused refit tile of 8 lanes, in each dtype
+    flat = torch.nonzero(prob.queryable.flatten())[:WIDE_REFIT_LANES, 0]
+    di, dj = flat // M, flat % M
+    dv = torch.as_tensor(real, dtype=torch.float32, device=device)[di, dj]
+    for bf16 in (False, True):
+        dtype = "bfloat16" if bf16 else "float32"
+        reset()
+        f_poly = pmf.fit_lookahead_batch(pst, prob, di, dj, dv, pcfg,
+                                         max_steps=PK_REFIT_STEPS,
+                                         lane_block=PK_LANE_BLOCK, bf16=bf16,
+                                         poly_ls=True)[2]
+        f_fused = pmf.fit_lookahead_batch(pst, prob, di, dj, dv, pcfg,
+                                          max_steps=PK_REFIT_STEPS,
+                                          lane_block=PK_LANE_BLOCK, bf16=bf16,
+                                          fused=True)[2]
+        torch.cuda.synchronize()
+        row = out[f"refit_{dtype}"] = dict(
+            b2_launches=pk.pmf_value_grad_cuda.launches[
+                ("L,d,rows", f"torch.{dtype}")],
+            b3_launches=pk.pmf_line_coeffs_cuda.launches[f"torch.{dtype}"],
+            b5_launches=pk.pmf_lookahead_fused_cuda.launches[
+                f"torch.{dtype}"],
+            poly_vs_fused_max_rel=((f_poly - f_fused).abs()
+                                   / f_fused.abs()).max().item())
+        check(bool(torch.isfinite(f_poly).all()
+                   and torch.isfinite(f_fused).all()),
+              f"non-finite d = {d} {dtype} refit values")
+        check(row["b2_launches"] > 0 and row["b3_launches"] > 0
+              and row["b5_launches"] == 1,
+              f"the d = {d} {dtype} refits did not launch B2, B3 and B5: "
+              f"{row}")
+        no_plain(f"{dtype} refit tiles")
+    print(json.dumps(dict(phase="wide_d_main_paths", d=d, **out)),
+          flush=True)
+    return out
+
+
+def vn_problem(device, dtype, n=VN_N, seed=1):
+    """The bench's vn workload (bench.py:184-250): a 24 x 24 problem of
+    rank 2, mask 0.2, its PMF fit (200 steps) on ``device``."""
+    import numpy as np
+    from amf_tpu_torch import types
+    from amf_tpu_torch.data.synthetic import make_fake_data
+    from amf_tpu_torch.models import pmf
+    from amf_tpu_torch.utils.rng import generator
+
+    rng = np.random.default_rng(seed)
+    real, known, _ = make_fake_data(num_users=n, num_items=n, rank=VN_D,
+                                    mask_type=VN_MASK, rng=rng)
+    prob = types.problem_from_dense(real, known, dtype=dtype, device=device)
+    pcfg = pmf.PMFConfig(latent_d=VN_D, max_fit_steps=VN_PMF_STEPS)
+    pst = pmf.init_state(generator(0, device), n, n, pcfg, prob, dtype=dtype,
+                         device=device)
+    pst, _ = pmf.fit(pst, prob, pcfg)
+    return real, prob, pcfg, pst
+
+
+def vn_approx(pst, prob, cov_param, device):
+    """The bench's base approximation: a random covariance fit for 100
+    steps."""
+    from amf_tpu_torch.models import vnormal
+    from amf_tpu_torch.utils.rng import fold_in, generator
+
+    vcfg = vnormal.VNConfig(latent_d=VN_D, max_fit_steps=VN_FIT_STEPS,
+                            cov_param=cov_param)
+    ast = vnormal.initialize_approx(
+        pst, vcfg, generator=generator(fold_in(0, 1), device))
+    return vcfg, vnormal.fit_normal(ast, pst, prob, vcfg)[0]
+
+
+def vn_lookahead_config(**kw):
+    from amf_tpu_torch.active.lookahead import LookaheadConfig
+
+    return LookaheadConfig(rating_values=(), refit_lookahead=True,
+                           pmf_refit_steps=VN_REFIT_STEPS,
+                           approx_refit_steps=VN_REFIT_STEPS,
+                           n_integration_nodes=VN_NODES, **kw)
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Host wall time of every call of each (module, attribute) in
+    ``targets`` while the block runs, the card synchronised around each
+    call, as {"name": [ms, calls]}. A psd-project tile launches ~6 million
+    kernels: too many for the profiler to trace and sort in the smoke's
+    time, so its split is taken this way."""
+    import torch
+
+    totals = {f"{mod.__name__.split('.')[-1]}.{attr}": [0.0, 0]
+              for mod, attr in targets}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in targets]
+
+    def wrap(key, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                totals[key][0] += 1e3 * (time.perf_counter() - t0)
+                totals[key][1] += 1
+        return call
+
+    try:
+        for (mod, attr, fn), key in zip(saved, totals):
+            setattr(mod, attr, wrap(key, fn))
+        yield totals
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def vn_split(fn):
+    """Wall ms of one call of ``fn`` (a vn lookahead tile) and the host
+    time of its stages and of the linear algebra inside them."""
+    import torch
+    from amf_tpu_torch.models import pmf, vnormal
+
+    with timed_calls([(pmf, "fit"), (vnormal, "initialize_approx"),
+                      (vnormal, "fit_normal"), (torch.linalg, "eigh"),
+                      (torch.linalg, "slogdet"),
+                      (torch.autograd, "grad")]) as totals:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return dict(wall_ms=wall, **{k: dict(ms=v[0], calls=v[1])
+                                 for k, v in totals.items()})
+
+
+def vn_phases(device):
+    """Phases 13-16: the variational (ActivePMF) path, which runs no
+    hand-written kernel (its linear algebra is PyTorch's): the bench's vn
+    sweep, card against CPU in float64, the active loops, the entry step."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch.active import criteria, lookahead
+    from amf_tpu_torch.active.loop import run_active_pmf
+    from amf_tpu_torch.entry import entry
+    from amf_tpu_torch.utils.rng import lane_generators, lane_normals
+
+    out = {}
+    crit = criteria.KEY_FUNCS["total-variance"]
+    f32 = torch.float32
+
+    stamp("13")
+    # ---- 13. the bench's vn sweep: chol all tiles, psd-project one tile
+    real, prob, pcfg, pst = vn_problem(device, f32)
+    cand = torch.nonzero(prob.queryable.flatten())[:, 0]
+    lcfg = vn_lookahead_config(candidate_tile=VN_TILE)
+    sweep = {}
+    for cov_param in ("chol", "psd-project"):
+        vcfg, ast = vn_approx(pst, prob, cov_param, device)
+        adapter = lookahead.vn_adapter(vcfg)
+
+        def run(c, seed=2, _a=ast, _ad=adapter):
+            return lookahead.lookahead_scores(crit, pst, _a, prob, seed, pcfg,
+                                              _ad, lcfg, cand=c)
+
+        run(cand[:2])  # warm
+        split = None
+        if cov_param == "chol":
+            part = cand
+            scores, tile_ms = timed_ms(lambda: run(part))
+        else:
+            # one tile, timed under the host-side profiler that splits it
+            part = cand[:VN_TILE]
+            box = []
+            split = vn_split(lambda: box.append(run(part)))
+            scores, tile_ms = box[0], split["wall_ms"]
+        finite = int(torch.isfinite(scores).sum())
+        row = sweep[cov_param] = dict(
+            candidates=len(part), tiles=-(-len(part) // VN_TILE),
+            lanes_a_tile=VN_TILE * VN_NODES, s=tile_ms / 1e3,
+            candidates_per_s=1e3 * len(part) / tile_ms, finite=finite,
+            scores_min=scores.min().item(), scores_max=scores.max().item())
+        check(finite == len(part),
+              f"vn {cov_param} f32 scores not all finite: {row}")
+        if split is not None:
+            row["split"] = split
+        else:
+            # the device's share of a 4-candidate tile (a psd-project
+            # tile's ~10^5 launches a candidate are too many to trace)
+            row["device_split_4_candidates"] = device_split(
+                lambda: run(cand[:4]), top=10)
+        print(json.dumps(dict(phase="vn_lookahead", cov_param=cov_param,
+                              **row)), flush=True)
+    out["sweep"] = sweep
+
+    stamp("14")
+    # ---- 14. card against CPU, float64, the same inputs and lane noise
+    real64, prob64, pcfg64, pst64 = vn_problem(device, torch.float64)
+    vcfg64, ast64 = vn_approx(pst64, prob64, "psd-project", device)
+    adapter = lookahead.vn_adapter(vcfg64)
+    q = torch.nonzero(prob64.queryable.flatten())[:, 0]
+
+    def to_cpu(state):
+        return dataclasses.replace(state, **{
+            f.name: getattr(state, f.name).cpu()
+            for f in dataclasses.fields(state)})
+
+    f64 = {}
+    for name, n_cand, nodes in (("total-variance", VN_F64_TILE, VN_NODES),
+                                ("pred-entropy-bound-approx", VN_PEB_TILE,
+                                 VN_NODES)):
+        c = q[:n_cand]
+        k = sum(prob64.shape) * VN_D
+        noise = lane_normals(lane_generators(5, c.tolist(), nodes, "cpu"),
+                             k * k, torch.float64, "cpu").reshape(
+            n_cand, nodes, k, k)
+        args = (criteria.KEY_FUNCS[name],)
+        lc = vn_lookahead_config()
+        card, card_ms = timed_ms(lambda: lookahead.lookahead_scores(
+            *args, pst64, ast64, prob64, 5, pcfg64, adapter, lc, cand=c,
+            noise=noise))
+        t0 = time.perf_counter()
+        host = lookahead.lookahead_scores(
+            *args, to_cpu(pst64), to_cpu(ast64), prob64.to(device="cpu"), 5,
+            pcfg64, adapter, lc, cand=c.cpu(), noise=noise)
+        host_s = time.perf_counter() - t0
+        card = card.cpu()
+        rel_diff = ((card - host).abs() / host.abs()).max().item()
+        row = f64[name] = dict(candidates=n_cand, card_s=card_ms / 1e3,
+                               cpu_s=host_s, max_rel_diff=rel_diff,
+                               rtol=VN_F64_RTOL,
+                               scores_min=host.min().item())
+        check(bool(torch.isfinite(card).all()) and rel_diff <= VN_F64_RTOL,
+              f"vn f64 {name}: card against CPU {row}")
+    out["card_vs_cpu_f64"] = f64
+    print(json.dumps(dict(phase="vn_card_vs_cpu_f64", **f64)), flush=True)
+
+    stamp("15")
+    # ---- 15. the active loops: vn (chol) on the bench's problem, mn on a
+    # 12 x 12 one (its row covariance then fits cuSOLVER's batched eigh)
+    loops = {}
+    for model, keys, steps, n in (
+            ("vn", ["pred-variance", "total-variance"], 3, VN_N),
+            ("mn", ["pred-variance", "total-variance-approx"], 2, VN_MN_N)):
+        lreal, lprob, _, _ = vn_problem(device, f32, n=n)
+        t0 = time.perf_counter()
+        res = run_active_pmf(
+            lprob, lreal, keys, latent_d=VN_D, refit_lookahead=True,
+            steps=steps, seed=0, model=model, lookahead_budget=VN_REFIT_STEPS,
+            lookahead_tile=VN_TILE, cov_param="chol", dtype=f32,
+            device=device, verbose=True)
+        torch.cuda.synchronize()
+        pool = lprob.queryable.cpu().numpy()
+        row = loops[model] = dict(s=time.perf_counter() - t0, steps=steps)
+        for k in keys:
+            recs = res[k]
+            picks = [r[2] for r in recs[1:]]
+            row[k] = dict(rmse=[r[1] for r in recs], picks=picks)
+            # every step scores the cells still in the pool
+            scored = [int(np.isfinite(r[3]).sum()) for r in recs[1:]]
+            check(len(recs) == steps
+                  and all(math.isfinite(r[1]) for r in recs)
+                  and len(set(picks)) == len(picks)
+                  and all(pool[p] for p in picks)
+                  and scored == [int(pool.sum()) - t
+                                 for t in range(steps - 1)],
+                  f"{model} loop {k}: {row[k]}, finite scores {scored}")
+    out["loops"] = loops
+    print(json.dumps(dict(phase="active_pmf_loops", **loops)), flush=True)
+
+    stamp("16")
+    # ---- 16. the port's entry() step
+    step, args = entry(device)
+    step(*args)  # warm
+    scores, step_ms = timed_ms(lambda: step(*args))
+    queryable = args[2].queryable
+    out["entry"] = dict(ms=step_ms, shape=list(scores.shape),
+                        finite_on_pool=int(torch.isfinite(
+                            scores[queryable]).sum()),
+                        pool=int(queryable.sum()))
+    check(tuple(scores.shape) == (16, 12)
+          and bool(torch.isfinite(scores[queryable]).all())
+          and bool((scores[~queryable] == -torch.inf).all()),
+          f"entry step scores {out['entry']}")
+    print(json.dumps(dict(phase="entry_step", **out["entry"])), flush=True)
+    return out
 
 
 def main() -> int:
@@ -706,26 +1148,35 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc per library, all together; the fused line search is built
     # for one factor width a library: the main paths' and phase 11's d = 32
-    libraries = [("chol_solve_sample", ()), ("pmf_value_grad", ()),
-                 ("pmf_line_coeffs", ()),
-                 *(("pmf_lookahead_fused", pk.fused_defines(d))
-                   for d in (D, 32))]
+    # (source, width): every source at the main paths' d = 10 and at
+    # d = 48, which is a library of its own; the fused line search also at
+    # d = 32 (phase 11)
+    widths = [(src, d) for src in ("chol_solve_sample", "pmf_value_grad",
+                                   "pmf_line_coeffs", "pmf_lookahead_fused")
+              for d in (D, WIDE_D)] + [("pmf_lookahead_fused", 32)]
+    libraries = [(src, cuda_build.width_defines(src, d)) for src, d in widths]
+
     def build_s(lib):
+        start = time.perf_counter()
         cuda_build.build(*lib)
-        return round(time.perf_counter() - t0, 1)
+        return round(time.perf_counter() - start, 1)
 
     with ThreadPoolExecutor(len(libraries)) as pool:
         each = list(pool.map(build_s, libraries))
-    ck._entry_points()
-    for lib in libraries[1:]:
-        pk._entry_point(*lib)
-    # a CLI run pays a library's seconds at its first use of a new source,
-    # the fused line search's at its first use of a new -D
+    for (src, d), lib in zip(widths, libraries):
+        if src == "chol_solve_sample":
+            ck._entry_points(d)
+        else:
+            pk._entry_point(*lib)
+    # a CLI run pays a library's seconds at its first use of a source, and
+    # of a new -D where that is a library of its own
+    build_s_by_lib = {f"{src} d={d}" + (f" {' '.join(lib[1])}" if lib[1]
+                                        else ""): t
+                      for (src, d), lib, t in zip(widths, libraries, each)}
     print(f"kernel build+load s {time.perf_counter() - t0:.1f} (each nvcc, "
-          f"side by side: "
-          f"{dict(zip((' '.join((n, *d)) for n, d in libraries), each))})",
-          flush=True)
+          f"side by side: {json.dumps(build_s_by_lib)})", flush=True)
 
+    stamp("2")
     # ---- 2. kernel vs plain version on the card
     kern = kernel_rows(device)
     main_row = next(r for r in kern if r["dtype"] == "float32"
@@ -734,6 +1185,7 @@ def main() -> int:
     gram_row = next(r for r in gram if r["dtype"] == "float32"
                     and r["r"] == M and r["L"] == TILE * len(VALS))
 
+    stamp("3")
     # ---- 3. the f32 lookahead tile at the bench shape
     rng = np.random.default_rng(0)
     real, known, _ = make_fake_data(
@@ -801,6 +1253,7 @@ def main() -> int:
     print(json.dumps(dict(phase="lookahead_tile_profile", **split)),
           flush=True)
 
+    stamp("4")
     # ---- 4. the active loop on a 64-cell pool
     q = np.flatnonzero(prob.queryable.cpu().numpy().ravel())
     pool = np.zeros(N * M, bool)
@@ -836,6 +1289,7 @@ def main() -> int:
         s_per_scored_step_upper=loop_s / (LOOP_STEPS - 1),
         kernel_launches=loop_launches)), flush=True)
 
+    stamp("5")
     # ---- 5. the same tile in f64, through the kernel and the plain version
     def f64(x):
         return x.double() if torch.is_tensor(x) and x.is_floating_point() else x
@@ -865,9 +1319,11 @@ def main() -> int:
     check(bool(torch.isfinite(s_kernel).all()), "non-finite f64 scores")
     check(rel <= SCORE_RTOL_F64, f"f64 kernel vs plain scores differ by {rel}")
 
+    stamp("6")
     # ---- 6. value+gradient kernel vs plain version, every variant
     vg = value_grad_rows(device, prob.R_obs, prob.rated)
 
+    stamp("7")
     # ---- 7. the bench's lane-blocked PMF refit: 1024 candidates, 8 tiles
     rcfg = pmf.PMFConfig(latent_d=D, max_fit_steps=200)
     rst = pmf.init_state(generator(7, device), N, M, rcfg, prob,
@@ -947,6 +1403,7 @@ def main() -> int:
     check(rel.max().item() <= REFIT_RTOL,
           f"f32 refit kernel vs plain differ by {rel.max().item()}")
 
+    stamp("8")
     # ---- 8. the add_rmse_boosts CLI on a 256-cell pool
     work = ROOT / "build" / "amf_tpu_torch" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -1027,10 +1484,12 @@ def main() -> int:
           f"the profiled tile called nonzero {split['nonzero_calls']} times: "
           "want the one index build, none in the proposal loop")
 
+    stamp("9")
     # ---- 9. line-coefficient kernel vs plain version
     sig = torch.stack([rst.sigma_sq, rst.sigma_u_sq, rst.sigma_v_sq])
     lc = coeff_rows(pk, rst, prob, di, dj, dv, sig, device)
 
+    stamp("10")
     # ---- 10. the poly-LS refit sweep (scripts/probe_poly_kernel.py)
     def poly_sweep(poly, bf16):
         return torch.cat([refit(s, lane_block=PK_LANE_BLOCK, block_rows=256,
@@ -1149,6 +1608,7 @@ def main() -> int:
             (poly_f[True, True] - poly_f[False, True]).abs()
             / poly_f[False, True].abs()).max().item())), flush=True)
 
+    stamp("11")
     # ---- 11. the fused refit on the same tile, at the bench's values
     # (lanes stop within a few steps) and at the CLI's (lanes run to the
     # step budget)
@@ -1311,38 +1771,72 @@ def main() -> int:
                     us_per_evaluation=1e3 * device_ms / int(evals.max()))
     # a lane's factors at d = 32 (336 KB) do not fit a block's shared
     # memory: the same search with the gathers on the spare set in global
-    # memory and e in a scratch buffer, held to the plain version
+    # memory and e in a scratch buffer, held to the plain version; the same
+    # at d = 48, and d = 48 on a problem small enough for shared memory
     gen = torch.Generator(device=device).manual_seed(11)
-    wide = [0.2 * torch.rand(32, k, generator=gen, device=device)
-            for k in (N, M)]
+    small_rated = torch.rand(97, 131, generator=gen, device=device) < 0.1
+    small_R = torch.randint(1, 6, (97, 131), generator=gen,
+                            device=device).float() * small_rated
+    small_cells = torch.nonzero(~small_rated)[:8]
     b5_global = {}
-    for bf16 in (False, True):
-        dtype = "bfloat16" if bf16 else "float32"
-        gargs = (*wide, prob.R_obs, prob.rated, ti[:8], tj[:8], tv[:8], sig,
-                 ls)
-        before = pk.pmf_lookahead_fused_cuda.variants["global"]
-        got = pk.pmf_lookahead_fused_cuda(*gargs, PK_REFIT_STEPS, bf16,
-                                          index=b5_index[bf16])
-        again = pk.pmf_lookahead_fused_cuda(*gargs, PK_REFIT_STEPS, bf16,
-                                            index=b5_index[bf16])
-        check(pk.pmf_lookahead_fused_cuda.variants["global"] == before + 2,
-              "d = 32 at full shape did not take the global variant")
-        want = pk.pmf_lookahead_fused_plain(*gargs, PK_REFIT_STEPS, bf16)
-        row = b5_global[dtype] = dict(
-            lanes=8, d=32, steps=PK_REFIT_STEPS,
-            lanes_same_evals=int((got[3] == want[3]).sum()),
-            evals_max=int(got[3].max()), f_rel=rel(got[0], want[0]),
-            factor_scaled=max(
-                ((a.float() - b.float()).abs() / (1 + b.float().abs()))
-                .max().item() for a, b in zip(got[1:3], want[1:3])),
-            ms=cuda_ms(lambda: pk.pmf_lookahead_fused_cuda(
-                *gargs, PK_REFIT_STEPS, bf16, index=b5_index[bf16]), 3))
-        check(all(torch.equal(g, a) for g, a in zip(got, again))
-              and row["lanes_same_evals"] == 8 and row["evals_max"] > 1
-              and row["f_rel"] <= FUSED_KERNEL_TOL["f"]
-              and row["factor_scaled"] <= FUSED_KERNEL_TOL[
-                  "factors_bf16_moving" if bf16 else "factors"],
-              f"fused kernel, global-memory variant ({dtype}): {row}")
+    for d, shape in ((32, "full"), (WIDE_D, "full"), (WIDE_D, "small")):
+        if shape == "full":
+            base = (prob.R_obs, prob.rated, ti[:8], tj[:8], tv[:8])
+        else:
+            base = (small_R, small_rated, small_cells[:, 0],
+                    small_cells[:, 1], tv[:8])
+        n_, m_ = base[0].shape
+        start = [0.2 * torch.rand(d, k, generator=gen, device=device)
+                 for k in (n_, m_)]
+        variant = "global" if shape == "full" else "shared"
+        for bf16 in (False, True):
+            dtype = "bfloat16" if bf16 else "float32"
+            gargs = (*start, *base[:2], *base[2:], sig, ls)
+            index = (b5_index[bf16] if shape == "full" else
+                     pk.rated_index(small_rated, small_R, bf16=bf16))
+            before = pk.pmf_lookahead_fused_cuda.variants[variant]
+            got = pk.pmf_lookahead_fused_cuda(*gargs, PK_REFIT_STEPS, bf16,
+                                              index=index)
+            again = pk.pmf_lookahead_fused_cuda(*gargs, PK_REFIT_STEPS, bf16,
+                                                index=index)
+            check(pk.pmf_lookahead_fused_cuda.variants[variant] == before + 2,
+                  f"d = {d}, {shape} shape did not take the {variant} "
+                  "variant")
+            want, plain_ms = timed_ms(lambda: pk.pmf_lookahead_fused_plain(
+                *gargs, PK_REFIT_STEPS, bf16))
+            diffs = [(a.float() - b.float()).abs()
+                     for a, b in zip(got[:3], want[:3])]
+            row = b5_global[f"d{d}/{shape}/{dtype}"] = dict(
+                lanes=8, d=d, n=n_, m=m_, variant=variant,
+                steps=PK_REFIT_STEPS,
+                lanes_same_evals=int((got[3] == want[3]).sum()),
+                evals_max=int(got[3].max()), f_rel=rel(got[0], want[0]),
+                factor_scaled=max(
+                    (x / (1 + b.float().abs())).max().item()
+                    for x, b in zip(diffs[1:], want[1:3])),
+                max_abs_err=max(x.max().item() for x in diffs),
+                ms=cuda_ms(lambda: pk.pmf_lookahead_fused_cuda(
+                    *gargs, PK_REFIT_STEPS, bf16, index=index), 3),
+                plain_ms=plain_ms)
+            if d == WIDE_D and shape == "full":
+                # bytes: the index, the base factors in, the lanes' factors
+                # out; operations: 2 d a cell at every evaluation and 4 d at
+                # the start and at every accept (as for the main tile)
+                nnz = index.nnz
+                cells = nnz + (~prob.rated[ti[:8], tj[:8]]).to(torch.int64)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    (N + M + 2) * 4 + nnz * (12 + (2 if bf16 else 4))
+                    + (N + M) * d * 4 + 8 * (N + M) * d * (2 if bf16 else 4),
+                    d * int(((2 * got[3].to(torch.int64)
+                              + 4 * (1 + got[4].to(torch.int64)))
+                             * cells).sum()), dtype)
+            check(all(torch.equal(g, a) for g, a in zip(got, again))
+                  and row["lanes_same_evals"] == 8 and row["evals_max"] > 1
+                  and row["f_rel"] <= FUSED_KERNEL_TOL["f"]
+                  and row["factor_scaled"] <= FUSED_KERNEL_TOL[
+                      "factors_bf16_moving" if bf16 else "factors"],
+                  f"fused kernel, d = {d}, {variant} variant ({dtype}): "
+                  f"{row}")
     b5_variants = dict(pk.pmf_lookahead_fused_cuda.variants)
     check(b5_variants.get("shared", 0) > 0 and b5_variants.get("global", 0) > 0,
           f"not both variants of the fused kernel ran: {b5_variants}")
@@ -1420,6 +1914,28 @@ def main() -> int:
                ("top10_shared", len(set(np.argsort(-boosts[k])[:10])
                                     & set(np.argsort(-b64)[:10]))))})),
         flush=True)
+    stamp("12")
+    # ---- 12. the main paths at d = 48
+    wide = wide_main_paths(device, prob, real, knowable, rng, work)
+    # ---- 13-16. the variational (ActivePMF) path
+    vn_phases(device)
+    stamp("end")
+
+    def wide_row(row, launches, src):
+        """The d = 48 row of a kernel: its timed case of this run at the
+        shape phase 12 gives it, and its launches there."""
+        lib = f"{src} d={WIDE_D} " + " ".join(
+            cuda_build.width_defines(src, WIDE_D))
+        return {"d": WIDE_D, "L": row["L"], "launches": launches,
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")},
+                "build_s": build_s_by_lib[lib]}
+
+    def vg_wide(layout, dtype, launches):
+        row = next(r for r in vg if r["layout"] == layout and r["d"] == WIDE_D
+                   and r["dtype"] == dtype and "ms" in r)
+        return wide_row(row, launches, "pmf_value_grad")
+
     def vg_entry(layout, dtype, replaces, launches):
         row = next(r for r in vg if r["layout"] == layout
                    and r["dtype"] == dtype and r["L"] == VG_LANES)
@@ -1432,7 +1948,20 @@ def main() -> int:
                                and r["dtype"] == dtype),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None}
+            "library_ms": None,
+            "d48": vg_wide(layout, dtype, wide_launches[layout, dtype])}
+
+    # the d = 48 main paths' launches (phase 12): B4 in the CLI tile, B2 in
+    # the poly-LS tiles
+    wide_launches = {("L,rows,d", "float32"): wide["cli"]["b4_launches"],
+                     **{("L,d,rows", dt): wide[f"refit_{dt}"]["b2_launches"]
+                        for dt in ("float32", "bfloat16")}}
+    # B1 at d = 48: timed at the V draw (r = 1682), held at both draws
+    gram_wide = next(r for r in gram if r["d"] == WIDE_D and r["r"] == M
+                     and r["dtype"] == "float32" and "ms" in r)
+    lc_wide = {r["dtype"]: r for r in lc if r["d"] == WIDE_D and "ms" in r}
+    b5_wide = {dt: dict(b5_global[f"d{WIDE_D}/full/{dt}"], L=8)
+               for dt in ("float32", "bfloat16")}
 
     # the S-given entry's bound: S's lower triangle, b, z in and x out
     chol_bound = bound_ms(
@@ -1452,6 +1981,10 @@ def main() -> int:
         **{k: gram_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "gram_to_x_ms", "gram_to_x_assembled_ms")},
         "library_ms": None,
+        "d48": wide_row(
+            dict(gram_wide, max_abs_err=max(
+                r["max_abs_err"] for r in gram + kern if r["d"] == WIDE_D)),
+            wide["gibbs"]["b1_launches"], "chol_solve_sample"),
         "s_given_entry": {
             "max_abs_err": max(r["max_abs_err"] for r in kern),
             "ms": main_row["ms"], "launch_only_ms": main_row["launch_only_ms"],
@@ -1472,7 +2005,10 @@ def main() -> int:
                               if r["dtype"] == dtype),
            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "device_ms", "call_ms")},
-           "library_ms": None}
+           "library_ms": None,
+           "d48": wide_row(lc_wide[dtype],
+                           wide[f"refit_{dtype}"]["b3_launches"],
+                           "pmf_line_coeffs")}
           for dtype in ("float32", "bfloat16")
           for row in [next(r for r in lc if r["dtype"] == dtype
                            and r["L"] == PK_TILE)]),
@@ -1483,7 +2019,10 @@ def main() -> int:
            **{k: b5[dtype][k] for k in (
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "device_ms", "call_ms", "evals_max", "us_per_evaluation")},
-           "library_ms": None}
+           "library_ms": None,
+           "d48": wide_row(b5_wide[dtype],
+                           wide[f"refit_{dtype}"]["b5_launches"],
+                           "pmf_lookahead_fused")}
           for dtype in ("float32", "bfloat16")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

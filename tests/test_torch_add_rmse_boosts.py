@@ -58,11 +58,11 @@ def test_tile_rmses_match_jax(data):
     want = jnp.sqrt(jnp.sum(err * err, axis=(1, 2))
                     / jnp.maximum(jnp.sum(jprob.test), 1))
 
-    tprob = convert.problem(jprob, dtype=torch.float32)
+    tprob = convert.problem(jprob, device="cpu", dtype=torch.float32)
     real_t = torch.as_tensor(real, dtype=torch.float32)
     ti, tj = torch.as_tensor(q // m), torch.as_tensor(q % m)
     got = tcli.tile_rmses(
-        convert.pmf_state(jst, dtype=torch.float32), tprob,
+        convert.pmf_state(jst, device="cpu", dtype=torch.float32), tprob,
         tpmf.PMFConfig(**jcfg._asdict()), real_t, ti, tj, real_t[ti, tj],
         STEPS, use_pallas=False)
     assert got.shape == (10,)

@@ -71,11 +71,12 @@ def case():
     rng = np.random.default_rng(3)
     real, known, vals = make_fake_data(num_users=6, num_items=5, rank=2,
                                        data_type=3, mask_type=0.5, rng=rng)
-    tprob = ttypes.problem_from_dense(real, known, dtype=torch.float64)
+    tprob = ttypes.problem_from_dense(real, known, dtype=torch.float64,
+                                      device="cpu")
     tcfg = tpmf.PMFConfig(latent_d=2, subtract_mean=True)
     tg = tbg.GibbsConfig(latent_d=2)
     tst = tpmf.init_state(generator(0, "cpu"), 6, 5, tcfg, tprob,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     tst, _ = tpmf.fit(tst, tprob, tcfg)
     _, tbase, _ = tbg.run_chain(
         tbg.init_chain(tst), tprob, tg, 64, generator=generator(5, "cpu"),

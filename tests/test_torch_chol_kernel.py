@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from amf_tpu_torch.ops import chol_kernel as tck
+from amf_tpu_torch.ops import cuda_build
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
        "float64": dict(rtol=1e-10, atol=1e-12)}
@@ -90,16 +91,39 @@ def test_wide_d_on_the_cpu_matches_jax_plain_version(jck):
 
 @pytest.mark.parametrize("cli", ["bayes_pmf", "add_rmse_boosts"])
 def test_help_states_the_widest_factor_the_kernels_take(cli, capsys):
-    """Wider than 32 raises on the card and runs on the CPU: said where a
-    user picks -D."""
+    """Any width runs on the card and on the CPU; above 32 the kernels build
+    a library of that width at its first use: said where a user picks
+    -D."""
     import importlib
 
     main = importlib.import_module(f"amf_tpu_torch.run.{cli}").main
     with pytest.raises(SystemExit):
         main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert "d <= 32 and a wider d raises" in text
-    assert "--device cpu" in text and tck.MAX_D == 32
+    assert "any d on the card" in text
+    assert "a wider d builds a library of its own" in text
+    assert cuda_build.BUCKETED_D == 32
+    assert cuda_build.width_defines("chol_solve_sample", 48) == (
+        "AMF_ONLY_D=48",)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_indefinite_matrix_gives_nan_on_its_row_only(jck, dtype):
+    """One S of the batch is not positive definite: the plain version gives
+    NaN on that row and the others' values, as the JAX reference does, and
+    raises nothing (no host wait on the factorisation's info)."""
+    S, rhs, z = _inputs(3, 4, 5, dtype)
+    S[2] = -S[2]
+    want = np.asarray(jck.chol_solve_sample_reference(S, rhs, z))
+    got = tck.chol_solve_sample(*_torch(S, rhs, z)).numpy()
+    assert np.isnan(want[2]).all() and np.isnan(got[2]).all()
+    keep = [0, 1, 3]
+    assert np.isfinite(got[keep]).all()
+    np.testing.assert_allclose(got[keep], want[keep], **TOL[dtype])
+    x = _gram_case(5, 2, 6, 4, 3, dtype, True, False)
+    x["alpha"][1] = -x["alpha"][1] - 100 * np.eye(3)
+    gram = tck.chol_gram_solve_sample(*_gram_args(x)).numpy()
+    assert np.isnan(gram[1]).all() and np.isfinite(gram[0]).all()
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -132,14 +156,20 @@ def test_cuda_kernel_matches_plain(cuda_device, d, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_large_d(cuda_device):
-    """d > 32 raises on the card, through the dispatcher too: no plain
-    version runs there unless the caller says ``kernel=False``."""
-    args = _torch(*_inputs(0, 3, 33, "float32"), device=cuda_device)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_kernel_takes_large_d(cuda_device, dtype):
+    """d = 48, above the shared library's 32: the kernel of a library built
+    for that width, through the dispatcher, against the plain version; no
+    plain version runs unless the caller says ``kernel=False``."""
+    args = _torch(*_inputs(48, 300, 48, dtype), device=cuda_device)
     calls = tck.chol_solve_sample_reference.calls
-    with pytest.raises(ValueError, match="d <= 32"):
-        tck.chol_solve_sample(*args)
+    launches = tck.chol_solve_sample_batch_minor.launches
+    got = tck.chol_solve_sample(*args)
+    assert tck.chol_solve_sample_batch_minor.launches == launches + 1
     assert tck.chol_solve_sample_reference.calls == calls
+    want = tck.chol_solve_sample(*args, kernel=False)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -292,9 +322,16 @@ def test_gram_cuda_kernel_matches_plain(cuda_device, d, center, cells, dtype):
 
 
 @pytest.mark.cuda
-def test_gram_cuda_kernel_refuses_large_d(cuda_device):
-    x = _gram_case(0, 2, 5, 4, 33, "float32", False, False)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gram_cuda_kernel_takes_large_d(cuda_device, dtype):
+    """d = 48 with centre and cells, against the plain version."""
+    x = _gram_case(48, 3, 200, 64, 48, dtype, True, True)
+    args = _gram_args(x, cuda_device)
     calls = tck.chol_solve_sample_reference.calls
-    with pytest.raises(ValueError, match="d <= 32"):
-        tck.chol_gram_solve_sample(*_gram_args(x, cuda_device))
+    launches = tck.chol_gram_solve_sample_cuda.launches
+    got = tck.chol_gram_solve_sample(*args)
+    assert tck.chol_gram_solve_sample_cuda.launches == launches + 1
     assert tck.chol_solve_sample_reference.calls == calls
+    want = tck.chol_gram_solve_sample(*args, kernel=False)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL[dtype])

@@ -51,7 +51,8 @@ def test_run_active_gibbs_matches_jax_schema(data):
     jres = jloop.run_active_gibbs(
         jtypes.problem_from_dense(real, known, dtype=jnp.float64), real,
         ["pred-variance"], dtype=jnp.float64, **kw)
-    tprob = ttypes.problem_from_dense(real, known, dtype=torch.float64)
+    tprob = ttypes.problem_from_dense(real, known, dtype=torch.float64,
+                                      device="cpu")
     tres = tloop.run_active_gibbs(tprob, real, KEYS, device="cpu", **kw)
     assert set(tres) == set(jres) | set(KEYS)
     np.testing.assert_array_equal(tres["_real"], jres["_real"])
@@ -67,7 +68,8 @@ def test_run_active_gibbs_matches_jax_schema(data):
 
 def test_run_active_gibbs_refuses_unported_options(data):
     real, known, _ = data
-    prob = ttypes.problem_from_dense(real, known, dtype=torch.float64)
+    prob = ttypes.problem_from_dense(real, known, dtype=torch.float64,
+                                      device="cpu")
     for kw in (dict(mesh=object()), dict(checkpoint_path="ckpt.pkl")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tloop.run_active_gibbs(prob, real, ["random"], device="cpu", **kw)

@@ -20,7 +20,12 @@ SLICE = [
     "amf_tpu_torch.models.bpmf_gibbs", "amf_tpu_torch.active.driver",
     "amf_tpu_torch.active.gibbs_loop", "amf_tpu_torch.run.bayes_pmf",
     "amf_tpu_torch.ops.pmf_kernels", "amf_tpu_torch.run.add_rmse_boosts",
-    "amf_tpu_torch.ops.probe_kernels",
+    "amf_tpu_torch.ops.probe_kernels", "amf_tpu_torch.ops.moments",
+    "amf_tpu_torch.ops.psd", "amf_tpu_torch.utils.linalg",
+    "amf_tpu_torch.models.vnormal", "amf_tpu_torch.models.mnormal",
+    "amf_tpu_torch.active.criteria", "amf_tpu_torch.active.lookahead",
+    "amf_tpu_torch.active.loop", "amf_tpu_torch.run.active_pmf",
+    "amf_tpu_torch.entry",
 ]
 
 
@@ -79,6 +84,45 @@ def test_default_device_is_cuda_with_no_cpu_fallback():
     for cli in (add_rmse_boosts, bayes_pmf):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--load-data", "never-read.npz"])
+    from amf_tpu_torch.active.loop import run_active_pmf
+    from amf_tpu_torch.entry import entry
+    from amf_tpu_torch.run import active_pmf
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_active_pmf(None, None, ["pred"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        active_pmf.main(["pred"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_constructors_default_to_the_card():
+    """A bare call builds on the card: without one it raises, and the CPU
+    is named to be used."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default would run on it")
+    import numpy as np
+
+    from amf_tpu_torch import convert, types
+    from amf_tpu_torch.models import pmf
+
+    real = np.arange(1.0, 7.0).reshape(2, 3)
+    known = real > 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        types.problem_from_dense(real, known)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        types.problem_from_ratings(np.asarray([[0, 1, 2.0]]), shape=(2, 3))
+    prob = types.problem_from_dense(real, known, device="cpu")
+    cfg = pmf.PMFConfig(latent_d=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pmf.init_state(torch.Generator(), 2, 3, cfg, prob)
+    st = pmf.init_state(torch.Generator(), 2, 3, cfg, prob, device="cpu")
+    fields = convert.to_numpy(st)
+    for build, src in ((convert.pmf_state, fields),
+                       (convert.problem, convert.to_numpy(prob))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(src)
+        assert build(src, device="cpu") is not None
 
 
 def test_lane_seeds_are_stable_and_tile_invariant():

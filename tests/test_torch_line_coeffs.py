@@ -275,13 +275,19 @@ def test_cuda_kernel_matches_plain(cuda_device, bf16, d):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_large_d(cuda_device):
-    """d > 32 raises on the card, through the public function too."""
-    x = _torch(_inputs(0, d=33), cuda_device)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_kernel_takes_large_d(cuda_device, bf16):
+    """d = 48, above the shared library's 32: the kernel of a library built
+    for that width, against the plain version, through the public
+    function."""
+    x = _torch(_inputs(48, d=48), cuda_device)
+    launches = sum(tpk.pmf_line_coeffs_cuda.launches.values())
     calls = tpk.pmf_line_coeffs_plain.calls
-    with pytest.raises(ValueError, match="d <= 32"):
-        tpk.pmf_line_coeffs_t(*x, bf16=False)
+    got = tpk.pmf_line_coeffs_t(*x, bf16=bf16)
+    assert sum(tpk.pmf_line_coeffs_cuda.launches.values()) == launches + 1
     assert tpk.pmf_line_coeffs_plain.calls == calls
+    want = tpk.pmf_line_coeffs_t(*x, bf16=bf16, kernel=False)
+    _close([c.cpu().numpy() for c in got], [c.cpu().numpy() for c in want])
 
 
 @pytest.mark.cuda

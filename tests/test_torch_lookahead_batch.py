@@ -38,8 +38,8 @@ def case():
     jst = jpmf.init_state(jax.random.PRNGKey(0), n, m, jcfg, jprob,
                           dtype=jnp.float32)
     jst, _ = jpmf.fit(jst, jprob, jcfg)
-    tst = convert.pmf_state(jst, dtype=torch.float32)
-    tprob = convert.problem(jprob, dtype=torch.float32)
+    tst = convert.pmf_state(jst, device="cpu", dtype=torch.float32)
+    tprob = convert.problem(jprob, device="cpu", dtype=torch.float32)
     return jprob, jcfg, jst, tprob, tpmf.PMFConfig(**jcfg._asdict()), tst
 
 

@@ -62,7 +62,8 @@ def case():
     prob = Problem(R_obs=torch.as_tensor(R), rated=torch.as_tensor(rated),
                    queryable=torch.as_tensor(~rated),
                    test=torch.as_tensor(rated))
-    st = tpmf.init_state(torch.Generator().manual_seed(0), n, m, cfg, prob)
+    st = tpmf.init_state(torch.Generator().manual_seed(0), n, m, cfg, prob,
+                         device="cpu")
     st, _ = tpmf.fit(st, prob, cfg)
     on = np.argwhere(rated)[0]
     di = np.asarray([on[0], 5, 12], np.int32)
@@ -414,20 +415,30 @@ def test_cuda_kernel_global_memory_variant(cuda_device, bf16):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_large_d(cuda_device):
-    """d > 32 raises on the card, through the public function too."""
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_kernel_takes_large_d(cuda_device, bf16):
+    """d = 48: the kernel of the library of that width against the plain
+    version, on its own outputs, and once through the public function."""
     rng = np.random.default_rng(0)
     R, rated = _problem(rng, 13, 9)
-    x = _torch([0.1 * rng.random((33, 13)).astype(np.float32),
-                0.1 * rng.random((33, 9)).astype(np.float32), R, rated,
-                np.asarray([0], np.int32), np.asarray([1], np.int32),
-                np.asarray([3.0], np.float32),
+    x = _torch([0.1 * rng.random((48, 13)).astype(np.float32),
+                0.1 * rng.random((48, 9)).astype(np.float32), R, rated,
+                np.asarray([0, 5, 12], np.int32), np.asarray([1, 8, 0], np.int32),
+                np.asarray([3.0, 1.0, 5.0], np.float32),
                 np.asarray([1.0, 10.0, 10.0], np.float32),
                 np.asarray([1e-3, 1e-4, 1e-10], np.float32)], cuda_device)
     calls = tpk.pmf_lookahead_fused_plain.calls
-    with pytest.raises(ValueError, match="d <= 32"):
-        tpk.pmf_lookahead_fused_t(*x, max_steps=3, bf16=False)
+    launches = sum(tpk.pmf_lookahead_fused_cuda.launches.values())
+    f = tpk.pmf_lookahead_fused_t(*x, max_steps=6, bf16=bf16)[0]
+    assert bool(torch.isfinite(f).all())
+    got = tpk.pmf_lookahead_fused_cuda(*x, 6, bf16)
+    assert sum(tpk.pmf_lookahead_fused_cuda.launches.values()) == launches + 2
     assert tpk.pmf_lookahead_fused_plain.calls == calls
+    want = tpk.pmf_lookahead_fused_plain(*x, 6, bf16)
+    assert torch.equal(got[3], want[3])
+    tol = TOL[False] if not bf16 else dict(val=1e-3, rtol=2e-2, atol=2e-2)
+    _close([g.float().cpu().numpy() for g in got[:3]],
+           [w.float().cpu().numpy() for w in want[:3]], tol)
 
 
 @pytest.mark.cuda

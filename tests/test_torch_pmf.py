@@ -32,9 +32,9 @@ def case():
     jcfg = jpmf.PMFConfig(latent_d=3, subtract_mean=True)
     jst = jpmf.init_state(jax.random.PRNGKey(0), 12, 9, jcfg, jprob,
                           dtype=jnp.float64)
-    tprob = convert.problem(jprob, dtype=torch.float64)
+    tprob = convert.problem(jprob, device="cpu", dtype=torch.float64)
     tcfg = tpmf.PMFConfig(**jcfg._asdict())
-    tst = convert.pmf_state(jst, dtype=torch.float64)
+    tst = convert.pmf_state(jst, device="cpu", dtype=torch.float64)
     return jprob, jcfg, jst, tprob, tcfg, tst
 
 
@@ -46,16 +46,17 @@ def test_convert_round_trip(case):
     for name in ("U", "V", "sigma_sq", "sigma_u_sq", "sigma_v_sq",
                  "mean_rating"):
         np.testing.assert_array_equal(back[name], np.asarray(getattr(jst, name)))
-    again = convert.to_numpy(convert.pmf_state(back))
+    again = convert.to_numpy(convert.pmf_state(back, device="cpu"))
     assert all(np.array_equal(again[k], back[k]) for k in back)
     np.testing.assert_array_equal(convert.to_numpy(tprob)["rated"],
                                   np.asarray(jprob.rated))
     chain = convert.chain_state({"U": back["U"], "V": back["V"],
-                                 "mean_rating": back["mean_rating"]})
+                                 "mean_rating": back["mean_rating"]},
+                                device="cpu")
     assert torch.equal(chain.U, tst.U)
     stats = convert.pred_stats({"mean": back["U"], "var": back["U"],
                                 "prob_ge": back["V"], "bin_counts": None},
-                               dtype=torch.float32)
+                               device="cpu", dtype=torch.float32)
     assert stats.bin_counts is None and stats.mean.dtype == torch.float32
 
 
@@ -124,7 +125,7 @@ def test_lane_fit_matches_jax_per_lane(case):
     JAX's refit of each hypothesised problem on its own."""
     jprob, jcfg, jst, tprob, tcfg, tst = case
     jst, _ = jpmf.fit(jst, jprob, jcfg)
-    tst = convert.pmf_state(jst, dtype=torch.float64)
+    tst = convert.pmf_state(jst, device="cpu", dtype=torch.float64)
     q = np.argwhere(np.asarray(jprob.queryable))[[0, 4]]
     vals = [5.0, 0.0]
     lanes = ttypes.LaneCells(i=torch.as_tensor(q[:, 0]),

@@ -138,8 +138,9 @@ def test_wide_d_on_the_cpu_matches_jax_reference(jpk):
 
 def test_dispatch_sends_only_cpu_tensors_to_the_plain_version():
     """The rule, held without a card: a CUDA tensor is the kernel's at any
-    width (whose launcher refuses d > 32), the plain version's only with
-    ``kernel=False``; a CPU tensor is always the plain version's."""
+    width (above 32 from a library built for that width), the plain
+    version's only with ``kernel=False``; a CPU tensor is always the plain
+    version's."""
     import types
 
     on_card = types.SimpleNamespace(device=torch.device("cuda"))
@@ -151,7 +152,10 @@ def test_dispatch_sends_only_cpu_tensors_to_the_plain_version():
     with pytest.raises(ValueError, match="pmf_line_coeffs runs on cpu or "
                        "cuda, not meta"):
         tpk._use_kernel(on_meta, True, "pmf_line_coeffs")
-    assert tpk.MAX_D == 32
+    from amf_tpu_torch.ops.cuda_build import width_defines
+
+    assert width_defines("pmf_value_grad", 32) == ()
+    assert width_defines("pmf_value_grad", 48) == ("AMF_ONLY_D=48",)
 
 
 def test_cpu_wrappers_run_the_plain_version_and_launch_nothing():
@@ -353,13 +357,20 @@ def test_cuda_kernel_matches_plain(cuda_device, layout, bf16, d):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_large_d(cuda_device):
-    """d > 32 raises on the card, through the public function too."""
-    x = _torch(_inputs(0, 2, 5, 4, 33), cuda_device)
-    calls = tpk.pmf_value_grad_plain.calls
-    with pytest.raises(ValueError, match="d <= 32"):
-        tpk.pmf_batched_value_grad(*x)
-    assert tpk.pmf_value_grad_plain.calls == calls
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("layout", ["rows", "t"])
+def test_cuda_kernel_takes_large_d(cuda_device, layout, bf16):
+    """d = 48, above the shared library's 32: the kernel of a library built
+    for that width, against the plain version, through the public
+    function."""
+    x = _torch(_inputs(48, 3, 37, 53, 48), cuda_device)
+    if layout == "t":
+        got, want = _kernel_vs_plain(tpk.pmf_batched_value_grad_t,
+                                     [_t(x[0]), _t(x[1]), *x[2:]], bf16=bf16)
+    else:
+        got, want = _kernel_vs_plain(tpk.pmf_batched_value_grad, x, bf16=bf16)
+    tol = GRAD_BF16 if bf16 and layout == "t" else GRAD
+    _close(got, [w.float().numpy() for w in want], grad_tol=tol)
 
 
 @pytest.mark.cuda
