@@ -5,18 +5,22 @@ reference: each module here mirrors the JAX module of the same name and is
 held against it by the ``tests/test_torch_*.py`` parity tests. This package
 imports ``torch`` and never ``jax``.
 
-Three slices are ported. The Gibbs BPMF ``exp-variance`` one-step
+Four slices are ported. The Gibbs BPMF ``exp-variance`` one-step
 lookahead with its active loop and the ``bayes_pmf`` command line; the
 PMF-refit lookahead ``models/pmf.fit_lookahead_batch`` in all of its paths
 (proposal loop, lane-blocked, poly line search, fused) with the
-``add_rmse_boosts`` command line; and ActivePMF, the variational-normal
+``add_rmse_boosts`` command line; ActivePMF, the variational-normal
 lookahead (full covariance and matrix normal) with its active loop, the
-``active_pmf`` command line and the flagship ``entry()`` step. Every kernel
+``active_pmf`` command line and the flagship ``entry()`` step; and the
+NUTS BPMF family (the Stan path): a lane-batched No-U-Turn Sampler, the
+BPMF posterior in its three density variants, the sample-based lookahead
+criteria, the stan loop and the ``bpmf`` command line. Every active loop
+checkpoints and resumes. Every kernel
 the JAX package wrote in Pallas has a hand-written CUDA kernel here, built
 by nvcc at first use and loaded with ctypes (any factor width d: d <= 32
 from one library a source, a wider d from a library built for it), and a
-plain PyTorch version beside it that the CPU runs. The variational path
-runs PyTorch's own linear algebra (eigh, slogdet, autograd), as the JAX
+plain PyTorch version beside it that the CPU runs. The variational and
+NUTS paths run PyTorch's own linear algebra and autograd, as the JAX
 package runs XLA's:
 
   types         dense masked Problem of tensors (with lane dimensions);
@@ -38,16 +42,24 @@ package runs XLA's:
                   Gauss-Legendre, the trapezoid grid)
                 moments: batched Gaussian moments of the approximations
                 psd: batched PSD projection
+  mcmc          nuts: the No-U-Turn Sampler over a lane axis (chains and
+                lookahead lanes in lockstep), its ESJD-grid warmup, and
+                the noise sources its draws come from
   models        PMF MAP fit, sigma updates and the batched lookahead refit;
                 Gibbs BPMF chains and the exp-variance lookahead; the
-                variational approximations vnormal and mnormal
-  active        the active-learning driver; the Gibbs loop; the ActivePMF
-                criteria, lookahead and loop
-  run           the bayes_pmf, add_rmse_boosts and active_pmf command lines
+                variational approximations vnormal and mnormal; bpmf_hmc,
+                the NUTS BPMF posterior, chains and lookahead, and
+                sample_stats, the statistics of its draws
+  active        the active-learning driver with checkpoint/resume and
+                replay; the Gibbs loop; the ActivePMF criteria, lookahead
+                and loop; the stan loop
+  run           the bayes_pmf, add_rmse_boosts, active_pmf and bpmf command
+                lines
   entry         the flagship step (one pred-variance scoring pass)
   convert       state conversion to and from the JAX package's field layout
   utils         device and precision policy, seeded generator streams,
-                factorisations that give NaN where they fail
+                factorisations that give NaN where they fail, the loops'
+                checkpointer
 
 The entry points run on the card unless the caller names the CPU.
 """

@@ -7,8 +7,11 @@ streams and the results record schema (plot_results.py:160-166) are uniform
 across model families.
 
 Random streams: each criterion owns a name-derived seed; each step folds the
-step index in, and the step's scoring and refit streams are its children.
-Checkpointing and replay are not ported yet (ROADMAP.md, port queue A).
+step index in, and the step's scoring and refit streams are its children,
+so a resume at step k draws the seeds the uninterrupted run would have
+drawn from step k on. Checkpoint/resume (``utils/checkpoint``) replays the
+recorded picks and refits once under its own seed; ``replay`` re-runs a
+recorded pick list with the step-indexed refit seeds.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.rng import fold_in, fold_in_name
 
 
@@ -43,8 +47,7 @@ class Family(NamedTuple):
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, port queue A, 'Left out of "
-        "the first slice')")
+        f"{what} is not ported yet (ROADMAP.md, port queue A)")
 
 
 def drive_active(
@@ -55,7 +58,7 @@ def drive_active(
     state0,
     seed: int,
     steps: Optional[int] = None,
-    ckpt=None,
+    ckpt: Optional[LoopCheckpointer] = None,
     verbose: bool = False,
     replay: Optional[Dict[str, List]] = None,
 ) -> Dict[str, List[tuple]]:
@@ -63,13 +66,24 @@ def drive_active(
 
     Each record is ``(n_rated, err, (i, j), evals)``; the first has no pick
     and no evals. Every criterion starts from the same ``state0``.
-    ``ckpt`` and ``replay`` are not ported yet and raise if given.
+
+    ``ckpt`` resumes a criterion from its recorded picks: the problem is
+    replayed and the state refit once under the seed
+    ``fold_in(kloop, 2**20 + len(records))`` (skipped when the criterion
+    has finished); the steps after it draw their step-indexed seeds. The
+    refit draws a fresh chain or fit from ``state0``, as the JAX package's
+    does, so the picks after a resume equal the uninterrupted run's where
+    they follow from the seeds alone (``random``) and may differ where they
+    follow from the refit state.
+
+    ``replay`` maps criterion -> the pick list of a previous run (record
+    field 2, None first): scoring is skipped and the recorded cells are
+    queried in order, with the step-indexed refit seeds the original run
+    used, so the model trajectory is reproduced and the err trace can be
+    re-scored under another metric.
     """
-    if ckpt is not None:
-        raise _not_ported("checkpoint/resume")
-    if replay is not None:
-        raise _not_ported("replay")
     n, m = problem.shape
+    ckpt = ckpt or LoopCheckpointer(None)
     out: Dict[str, List[tuple]] = {}
 
     for kname in key_names:
@@ -77,18 +91,35 @@ def drive_active(
         prob_k, state = problem, state0
         kloop = fold_in_name(seed, kname)
         max_steps = steps if steps is not None else n * m
-        rec = (int(prob_k.n_rated), float(family.err(state, prob_k)),
-               None, None)
-        if family.extra is not None:
-            rec = rec + tuple(family.extra(state))
-        records = [rec]
+
+        prob_k, records, will_run = ckpt.resume(kname, prob_k, real, max_steps)
+        if records:
+            if will_run:  # skip the refit when the criterion already finished
+                state = family.refit(state, prob_k,
+                                     fold_in(kloop, 2**20 + len(records)))
+            if verbose:
+                print(f"{nice}: resumed at step {len(records) - 1}")
+        else:
+            rec = (int(prob_k.n_rated), float(family.err(state, prob_k)),
+                   None, None)
+            if family.extra is not None:
+                rec = rec + tuple(family.extra(state))
+            records = [rec]
         t0 = time.time()
+
+        replay_picks = (replay or {}).get(kname)
+        if replay_picks is not None:
+            max_steps = min(max_steps, len(replay_picks))
 
         while bool(prob_k.queryable.any()) and len(records) < max_steps:
             t_step = time.time()
             kstep = fold_in(kloop, len(records))
             kscore, krefit = fold_in(kstep, 0), fold_in(kstep, 1)
-            if int(prob_k.queryable.sum()) == 1:
+            if replay_picks is not None:
+                i, j = (int(x) for x in replay_picks[len(records)])
+                flat = i * m + j
+                evals = None
+            elif int(prob_k.queryable.sum()) == 1:
                 flat = int(torch.nonzero(prob_k.queryable.flatten())[0, 0])
                 evals = None
             else:
@@ -114,11 +145,13 @@ def drive_active(
             if family.extra is not None:
                 rec = rec + tuple(family.extra(state))
             records.append(rec)
+            ckpt.update(kname, records)
             if verbose:
                 print(f"{nice:<36} step {len(records) - 1}: "
                       f"picked ({i},{j}), err {err:.5f} (score "
                       f"{t_score:.2f}s, refit {time.time() - t_step - t_score:.2f}s)")
 
+        ckpt.update(kname, records, force=True)
         out[kname] = records
         if verbose:
             print(f"{nice}: {len(records) - 1} steps in "

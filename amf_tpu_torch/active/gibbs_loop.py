@@ -18,6 +18,7 @@ from amf_tpu_torch.active.driver import Family, _not_ported, drive_active
 from amf_tpu_torch.analysis import metrics
 from amf_tpu_torch.models import bpmf_gibbs, pmf
 from amf_tpu_torch.types import Problem, rating_bounds, ratings_array
+from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.platform import resolve_device
 from amf_tpu_torch.utils.rng import fold_in, fold_in_name, generator
 
@@ -94,6 +95,7 @@ def run_active_gibbs(
     device="cuda",
     verbose: bool = False,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 20,
     binary_acc: bool = False,
     replay: Optional[Dict[str, list]] = None,
 ) -> Dict[str, object]:
@@ -110,8 +112,11 @@ def run_active_gibbs(
     device: ``cuda`` by default; without a card that raises
     (``utils.platform.resolve_device``). The CPU runs only when named.
 
-    Not ported yet (raise if given): ``mesh`` (candidate sharding),
-    ``checkpoint_path`` and ``replay``.
+    checkpoint_path: a partial-results pickle written every
+    ``checkpoint_every`` steps and at each criterion's end; a run given an
+    existing one resumes from its recorded picks (``active/driver.py``).
+    ``replay`` re-runs recorded pick lists. Not ported yet (raises if
+    given): ``mesh`` (candidate sharding).
     """
     del lookahead_host_tiles  # see the docstring
     for k in key_names:
@@ -119,8 +124,6 @@ def run_active_gibbs(
             raise ValueError(f"unknown Gibbs criterion {k!r}")
     if mesh is not None:
         raise _not_ported("candidate sharding over a device mesh")
-    if checkpoint_path is not None:
-        raise _not_ported("checkpoint/resume")
     device = resolve_device(device)
     n, m = problem.shape
     problem = problem.to(device=device, dtype=dtype)
@@ -199,7 +202,9 @@ def run_active_gibbs(
         refit=lambda st, prob, k: refit_and_sample(st[0], prob, k),
         err=err,
     )
+    ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
+                                        every=checkpoint_every)
     results.update(
         drive_active(problem, real, key_names, family, (pst0, stats0), seed,
-                     steps=steps, verbose=verbose, replay=replay))
+                     steps=steps, ckpt=ckpt, verbose=verbose, replay=replay))
     return results

@@ -24,6 +24,7 @@ from amf_tpu_torch.active.driver import Family, drive_active
 from amf_tpu_torch.analysis import metrics
 from amf_tpu_torch.models import mnormal, pmf, vnormal
 from amf_tpu_torch.types import Problem, ratings_array
+from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.platform import resolve_device
 from amf_tpu_torch.utils.rng import fold_in_name, generator
 
@@ -60,6 +61,8 @@ def run_active_pmf(
     device=None,
     verbose: bool = False,
     initial_state=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 20,
 ) -> Dict[str, object]:
     """Run the multi-criterion comparison (reference: compare(),
     active_pmf.py:1013-1092). Returns the reference results schema.
@@ -73,6 +76,10 @@ def run_active_pmf(
 
     device: the card by default; without one that raises
     (``utils.platform.resolve_device``). The CPU runs only when named.
+
+    checkpoint_path: a partial-results pickle written every
+    ``checkpoint_every`` steps and at each criterion's end; a run given an
+    existing one resumes from its recorded picks (``active/driver.py``).
     """
     registry = (criteria_mod.KEY_FUNCS if model == "vn"
                 else criteria_mod.MN_KEY_FUNCS)
@@ -170,6 +177,8 @@ def run_active_pmf(
         err=lambda st, prob: metrics.rmse_on(
             pmf.predicted_matrix(st[0], pcfg), real_t, prob.test),
     )
+    ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
+                                        every=checkpoint_every)
     results.update(drive_active(problem, real, key_names, family, (pst, ast),
-                                seed, steps=steps, verbose=verbose))
+                                seed, steps=steps, ckpt=ckpt, verbose=verbose))
     return results

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from amf_tpu_torch.models.bpmf_gibbs import ChainState, PredStats
+from amf_tpu_torch.models.bpmf_hmc import BPMFState
 from amf_tpu_torch.models.mnormal import MNState
 from amf_tpu_torch.models.pmf import PMFState
 from amf_tpu_torch.models.vnormal import VNState
@@ -66,6 +67,12 @@ def chain_state(src, device=None, dtype=None) -> ChainState:
 def pred_stats(src, device=None, dtype=None) -> PredStats:
     """``PredStats`` from mean, var, prob_ge, bin_counts (may be None)."""
     return _build(PredStats, src, device, dtype)
+
+
+def hmc_state(src, device=None, dtype=None) -> BPMFState:
+    """``BPMFState`` (NUTS BPMF) from mode_q, mode_lp, mean_rating,
+    adapt_eps, adapt_inv_mass."""
+    return _build(BPMFState, src, device, dtype)
 
 
 def vn_state(src, device=None, dtype=None) -> VNState:

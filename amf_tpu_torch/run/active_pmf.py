@@ -5,9 +5,10 @@ Same flags as the JAX package's CLI and the reference entry points
 ``python-pmf/active_pmf.py main()`` (:1100-1257) and ``mn_active_pmf.py
 main()`` (:1011-1128): criterion keys, data schema and results pickle, plus
 ``--device`` (``cuda`` by default; ``cpu`` only when named). ``--model mn``
-selects the matrix-normal approximation. ``--scan``, ``--scan-evals``,
-``--shard-candidates`` and ``--checkpoint`` are not ported yet and exit
-with a message naming the ROADMAP item.
+selects the matrix-normal approximation. ``--checkpoint`` writes a
+partial-results pickle and resumes from one. ``--scan``, ``--scan-evals``
+and ``--shard-candidates`` are not ported yet and exit with a message
+naming the ROADMAP item.
 
     python -m amf_tpu_torch.run.active_pmf --device cuda -N 24 -M 24 -D 2 \\
         --mask .2 total-variance
@@ -105,7 +106,8 @@ def build_parser():
     results.add_argument("--note", action="append",
                          help="Saved into the results file; otherwise unused.")
     results.add_argument("--checkpoint", default=None, metavar="FILE",
-                         help="not ported yet")
+                         help="partial-results file for mid-run checkpoints "
+                              "and exact resume")
     return parser
 
 
@@ -139,8 +141,7 @@ def main(argv=None):
                              f"{', '.join(sorted(registry))}.\n")
             sys.exit(1)
     for flag, given in (("--scan", args.scan or args.scan_evals),
-                        ("--shard-candidates", args.shard_candidates),
-                        ("--checkpoint", args.checkpoint)):
+                        ("--shard-candidates", args.shard_candidates)):
         if given:
             sys.exit(_NOT_PORTED.format(flag=flag))
 
@@ -213,6 +214,7 @@ def main(argv=None):
         device=device,
         verbose=args.verbose,
         initial_state=initial_state,
+        checkpoint_path=args.checkpoint,
     )
 
     if args.save_results:

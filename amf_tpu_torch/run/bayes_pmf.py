@@ -3,9 +3,10 @@
 
 Same flags as the JAX package's CLI and the reference's
 ``python-pmf/bayes_pmf.py main()`` (:828-938), same criterion keys, data
-schema and results pickle, plus ``--device``. ``--scan``,
-``--shard-candidates`` and ``--checkpoint`` are not ported yet and exit
-with a message naming the ROADMAP item.
+schema and results pickle, plus ``--device``. ``--checkpoint`` writes a
+partial-results pickle and resumes from one. ``--scan`` and
+``--shard-candidates`` are not ported yet and exit with a message naming
+the ROADMAP item.
 
     python -m amf_tpu_torch.run.bayes_pmf --load-data data.npz exp-variance
 """
@@ -21,8 +22,7 @@ import sys
 import numpy as np
 
 _NOT_PORTED = (
-    "{flag} is not ported to amf_tpu_torch yet (ROADMAP.md, port queue A, "
-    "'Left out of the first slice')")
+    "{flag} is not ported to amf_tpu_torch yet (ROADMAP.md, port queue A)")
 
 
 def main(argv=None):
@@ -70,7 +70,7 @@ def main(argv=None):
                         dest="save_results")
     parser.add_argument("--note", action="append")
     parser.add_argument("--checkpoint", default=None, metavar="FILE",
-                        help="not ported yet")
+                        help="partial-results checkpoint for exact resume")
     parser.add_argument("keys", nargs="*",
                         help="Choices: {}.".format(", ".join(sorted(KEYS))))
     args = parser.parse_args(argv)
@@ -83,8 +83,7 @@ def main(argv=None):
             )
             sys.exit(1)
     for flag, given in (("--scan", args.scan or args.scan_evals),
-                        ("--shard-candidates", args.shard_candidates),
-                        ("--checkpoint", args.checkpoint)):
+                        ("--shard-candidates", args.shard_candidates)):
         if given:
             sys.exit(_NOT_PORTED.format(flag=flag))
 
@@ -145,6 +144,7 @@ def main(argv=None):
         dtype=dtype,
         device=device,
         verbose=args.verbose,
+        checkpoint_path=args.checkpoint,
     )
 
     if args.save_results:

@@ -17,7 +17,12 @@ hand-written kernel of them against its plain PyTorch version on the card:
   * the variational ActivePMF lookahead at the shape of ``bench.py``'s vn
     workload (24 x 24, d = 2), its active loop (vn and mn) and the port's
     ``entry()`` step; this path runs PyTorch's linear algebra and no
-    hand-written kernel.
+    hand-written kernel;
+  * the NUTS BPMF path (the reference's Stan path) at the reference's
+    DrugBank stan shape (94 x 425, d = 20) and at the MovieLens shape: base
+    chains, lookahead tiles, its stan loop with a checkpoint and a resume,
+    and its ``bpmf`` CLI; this path runs autograd and no hand-written
+    kernel.
 
     python3 chip_smoke.py
 
@@ -78,6 +83,25 @@ Phases (each raises on failure):
  15. run_active_pmf: 3 records for vn (pred-variance, total-variance) and 2
      for mn (pred-variance, total-variance-approx, on a 12 x 12 problem);
  16. the port's entry() step.
+ 17. NUTS base chains at the DrugBank shape, f32, 100 draws after 50
+     warmup: 4 chains as lanes and 1 chain, each from a PMF MAP warm start:
+     wall time, leapfrogs/s, tree depth, divergences, lp__ split-R-hat and
+     ESS, syncs a transition, peak memory;
+ 18. one NUTS base chain at the MovieLens shape (d = 5, 100 draws after
+     50 warmup), the same readings;
+ 19. NUTS lookahead tiles at the DrugBank shape from phase 17's chain:
+     exp-variance over 32 candidates x 5 values (160 lanes, 100 draws
+     after 50 warmup) and exp-entropy-est over 8 (30 after 15): every
+     score finite,
+     tile time, lockstep against the lanes' mean leapfrogs, syncs; and the
+     profiler's split of one 160-lane transition (potential, RNG, syncs);
+ 20. float64 card against CPU (12 x 10, d = 3, 6 lanes) on the same
+     recorded noise: one transition, and each draw of a 20 + 10 chain from
+     the card's draw before it, <= 1e-8 scaled; the chains' trees and
+     adaptation the same; the freely run chains' drift as a figure;
+ 21. run_active_stan, 3 records (random, pred-variance, exp-variance) on a
+     12-cell pool, against a run stopped at 2 records with a checkpoint and
+     resumed to 3; the ``bpmf`` CLI with ``--checkpoint``.
 The launch counts are reset before phases 3, 7, 8, 10, 11 and each run of
 12, and read after phases 4, 7, 8, 10, 11 and each run of 12, before the
 comparisons with the plain versions; phases 7, 8 and 10 also count the
@@ -180,6 +204,32 @@ VN_MN_N = 12
 # card against CPU in float64: the same inputs and lane noise, the same
 # operations in other kernels' orders; tiles of 8 and 4 candidates
 VN_F64_TILE, VN_PEB_TILE, VN_F64_RTOL = 8, 4, 1e-8
+# the NUTS BPMF path (phases 17-21). The reference's DrugBank stan
+# configuration: 94 x 425, d = 20, 200 draws after 100 warmup
+# (BENCHMARKS.md:243-244), here 100 after 50 so that the smoke keeps well
+# inside its time (a transition runs ~220 leapfrogs: PERF.md §5), on
+# synthetic ratings 1..5, f32; 1 chain and 4 chains as lanes
+DB_N, DB_M, DB_D, DB_SAMPS, DB_WARMUP, DB_CHAINS = 94, 425, 20, 100, 50, 4
+# MovieLens shape (bench.py) at HMCConfig's d = 5 and the CLI's 100 draws
+# after 50 warmup
+ML_D, ML_SAMPS, ML_WARMUP = 5, 100, 50
+# a lookahead tile at the DrugBank shape: 32 candidates x 5 values = 160
+# lanes (exp-variance) at the CLI's lookahead budget (100 draws after 50
+# warmup), and 8 candidates (exp-entropy-est) at 30 after 15, so that the
+# smoke keeps to its time (its matrix-normal fit streams every draw at every
+# sweep: PERF.md §5)
+LA_CAND, LA_ENT_CAND = 32, 8
+LA_BUDGET = {"total-variance": (100, 50), "entropy-est": (30, 15)}
+# float64 card against CPU: 12 x 10, d = 3, 6 lanes, a chain of 20 warmup
+# and 10 draws, the same noise on both. One transition, and each draw of
+# the chain from the card's draw before it, agree to NUTS_F64_TOL; the
+# chain run freely on each side drifts apart as a few-ulp change of its
+# start does on one side (PERF.md §6), so that drift is a figure
+NUTS_F64 = dict(n=12, m=10, d=3, lanes=6, warmup=20, draws=10)
+NUTS_F64_TOL = 1e-8
+# the stan loop: 3 records on a 24 x 30 problem with a 12-cell pool, a
+# checkpoint after 2 and a resume to 3; the CLI on a 12 x 10 problem
+STAN_N, STAN_M, STAN_D, STAN_POOL = 24, 30, 5, 12
 
 
 START = time.perf_counter()
@@ -1112,6 +1162,428 @@ def vn_phases(device):
     return out
 
 
+def nuts_problem(device, n, m, dtype, seed, rank=5, mask=0.1):
+    """Synthetic ratings 1..5 at n x m (``make_fake_data``, seeded), every
+    cell knowable, ``mask`` of them known."""
+    import numpy as np
+    from amf_tpu_torch import types
+    from amf_tpu_torch.data.synthetic import make_fake_data
+
+    rng = np.random.default_rng(seed)
+    real, known, _ = make_fake_data(num_users=n, num_items=m, rank=rank,
+                                    noise=0.5, mask_type=mask, rng=rng)
+    real = np.clip(np.round(real - real.mean() + 3.0), 1.0, 5.0)
+    return real, known, types.problem_from_dense(
+        real, known, dtype=dtype, device=device, zeros_unknowable=False)
+
+
+def tree_stats(num_leaves) -> dict:
+    """Mean and max tree depth (doublings: floor(log2(leaves)) + 1) and
+    leaves of a chain's draws."""
+    import torch
+
+    leaves = num_leaves.double().clamp(min=1)
+    depth = torch.floor(torch.log2(leaves)) + 1
+    return dict(mean_depth=depth.mean().item(), max_depth=depth.max().item(),
+                mean_leaves=leaves.mean().item(),
+                max_leaves=leaves.max().item())
+
+
+def base_chain(device, prob, d, samps, warmup, chains, seed=0):
+    """One NUTS base chain run (``bpmf_hmc.samples``) from a PMF MAP warm
+    start: its readings, the state after it and its draws."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch.analysis import metrics
+    from amf_tpu_torch.mcmc import nuts
+    from amf_tpu_torch.models import bpmf_hmc, pmf
+    from amf_tpu_torch.utils.rng import generator
+
+    n, m = prob.shape
+    dtype = prob.R_obs.dtype
+    pcfg = pmf.PMFConfig(latent_d=d, subtract_mean=True)
+    pst = pmf.init_state(generator(seed, device), n, m, pcfg, prob,
+                         dtype=dtype, device=device)
+    pst, _ = pmf.fit(pst, prob, pcfg)
+    cfg = bpmf_hmc.HMCConfig(latent_d=d)
+    st = bpmf_hmc.init_state(prob, cfg, U=pst.U, V=pst.V, dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nuts.Counters.reset()
+    t0 = time.perf_counter()
+    st2, out = bpmf_hmc.samples(seed + 1, st, prob, cfg, samps, warmup,
+                                chains=chains)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = nuts.Counters.read()
+    lp = out["lp__"].cpu().numpy().reshape(chains, -1)
+    finite = bool(torch.isfinite(out["U"]).all()) and bool(np.isfinite(lp).all())
+    row = dict(n=n, m=m, d=d, chains=chains, draws=samps, warmup=warmup,
+               dim=bpmf_hmc.ParamShapes(n, m, d).dim, s=wall,
+               lockstep_leapfrogs=c["lockstep_leapfrogs"],
+               lane_leapfrogs=c["lane_leaves"],
+               lane_leapfrogs_per_s=c["lane_leaves"] / wall,
+               lockstep_leapfrogs_per_s=c["lockstep_leapfrogs"] / wall,
+               syncs_per_transition=c["syncs"] / c["transitions"],
+               **tree_stats(out["num_leaves"]),
+               divergences=int(out["diverging"].sum()),
+               accept_mean=out["accept_prob"].mean().item(),
+               lp_split_rhat=metrics.split_rhat(lp), lp_ess=metrics.ess(lp),
+               mode_lp=st2.mode_lp.item(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               finite=finite)
+    return row, st2, out
+
+
+class RecordedNoise:
+    """A noise source that records what it serves (for the CPU run) and
+    serves the recording again, moved to another device (for the card)."""
+
+    def __init__(self, source=None, steps=None, searches=None):
+        self.source = source
+        self.steps = {} if steps is None else steps
+        self.searches = {} if searches is None else searches
+
+    def step(self, t):
+        if self.source is not None and t not in self.steps:
+            self.steps[t] = self.source.step(t)
+        return self.steps[t]
+
+    def search(self, t):
+        if self.source is not None and t not in self.searches:
+            self.searches[t] = self.source.search(t)
+        return self.searches[t]
+
+    def to(self, device):
+        return RecordedNoise(
+            steps={t: type(v)(*(x.to(device) for x in v))
+                   for t, v in self.steps.items()},
+            searches={t: v.to(device) for t, v in self.searches.items()})
+
+
+def transition_split(fn):
+    """torch.profiler over one call of ``fn`` (one lockstep transition):
+    wall and device ms, the host's time in the potential's forward and
+    backward (``nuts.potential``) and in the RNG (``nuts.rng``), the
+    host-device synchronisations, and the top device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    avg = prof.key_averages()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in avg if e.device_type == DeviceType.CUDA),
+                     key=lambda r: -r[1])
+
+    def host_ms(key):
+        return sum(e.cpu_time_total / 1e3 for e in avg if e.key == key)
+
+    def count(key):
+        return sum(e.count for e in avg if e.key == key)
+
+    return dict(wall_ms=wall_ms,
+                device_busy_ms=sum(r[1] for r in kernels),
+                device_launches=sum(r[2] for r in kernels),
+                potential_host_ms=host_ms("nuts.potential"),
+                potential_calls=count("nuts.potential"),
+                rng_host_ms=host_ms("nuts.rng"),
+                stream_syncs=count("cudaStreamSynchronize"),
+                dtoh_copies=count("cudaMemcpyAsync"),
+                top=[dict(name=k[:70], ms=t, calls=c)
+                     for k, t, c in kernels[:8]])
+
+
+def nuts_phases(device):
+    """Phases 17-21: the NUTS BPMF path (mcmc/nuts, models/bpmf_hmc,
+    sample_stats, the stan loop and its CLI), which runs no hand-written
+    kernel: its density and gradient are PyTorch's (autograd)."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch import types
+    from amf_tpu_torch.active.stan_loop import run_active_stan
+    from amf_tpu_torch.data.loaders import save_npz_schema
+    from amf_tpu_torch.mcmc import nuts
+    from amf_tpu_torch.models import bpmf_hmc, sample_stats
+    from amf_tpu_torch.types import LaneCells
+    from amf_tpu_torch.utils.rng import generator, lane_generators
+
+    out = {}
+    f32 = torch.float32
+    vals = VALS
+
+    stamp("17")
+    # ---- 17. base chains at the DrugBank shape: 1 chain, 4 as lanes
+    _, _, db_prob = nuts_problem(device, DB_N, DB_M, f32, seed=3)
+    for chains in (DB_CHAINS, 1):
+        row, st, samps = base_chain(device, db_prob, DB_D, DB_SAMPS,
+                                    DB_WARMUP, chains)
+        out[f"drugbank_{chains}"] = row
+        print(json.dumps(dict(phase="nuts_base_drugbank", **row)), flush=True)
+        check(row["finite"], f"drugbank base chain not finite: {row}")
+
+    stamp("18")
+    # ---- 18. base chain at the MovieLens shape
+    _, _, ml_prob = nuts_problem(device, N, M, f32, seed=0, rank=D,
+                                 mask=0.05 * 100000 / (N * M))
+    row = base_chain(device, ml_prob, ML_D, ML_SAMPS, ML_WARMUP, 1)[0]
+    out["movielens_1"] = row
+    print(json.dumps(dict(phase="nuts_base_movielens", **row)), flush=True)
+    check(row["finite"], f"movielens base chain not finite: {row}")
+    del ml_prob
+
+    stamp("19")
+    # ---- 19. lookahead tiles at the DrugBank shape: exp-variance (32
+    # candidates x 5 values) and exp-entropy-est (8 candidates), from the
+    # one-chain base run of phase 17 (its mode and statistics)
+    cfg = bpmf_hmc.HMCConfig(latent_d=DB_D)
+    base = sample_stats.prediction_stats(
+        samps["U"], samps["V"], st.mean_rating, True,
+        value_bounds=tuple(types.rating_bounds(vals)))
+    cand = torch.nonzero(db_prob.queryable.flatten())[:, 0]
+    tiles = {}
+    for stat, n_cand in (("total-variance", LA_CAND),
+                         ("entropy-est", LA_ENT_CAND)):
+        draws, warmup = LA_BUDGET[stat]
+        c = cand[:n_cand]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nuts.Counters.reset()
+        t0 = time.perf_counter()
+        scores = bpmf_hmc.lookahead_scores(
+            11, st, db_prob, cfg, base, vals, stat=stat, num_samps=draws,
+            warmup=warmup, cand=c, n_base_samples=DB_SAMPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k = nuts.Counters.read()
+        lanes = n_cand * len(vals)
+        row = tiles[stat] = dict(
+            candidates=n_cand, lanes=lanes, draws=draws, warmup=warmup,
+            s=wall,
+            candidates_per_s=n_cand / wall,
+            lockstep_leapfrogs_per_transition=(
+                k["lockstep_leapfrogs"] / k["transitions"]),
+            lane_mean_leapfrogs_per_transition=(
+                k["lane_leaves"] / k["lane_transitions"]),
+            syncs_per_transition=k["syncs"] / k["transitions"],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            finite=int(torch.isfinite(scores).sum()),
+            scores_min=scores.min().item(), scores_max=scores.max().item())
+        print(json.dumps(dict(phase="nuts_lookahead_tile", stat=stat, **row)),
+              flush=True)
+        check(row["finite"] == n_cand,
+              f"nuts lookahead {stat} scores not all finite: {row}")
+
+    # the profiler's split of one lockstep transition of the 160-lane tile,
+    # from the base mode
+    n, m = db_prob.shape
+    shapes = bpmf_hmc.ParamShapes(n, m, DB_D)
+    c = cand[:LA_CAND]
+    cells = LaneCells(i=torch.repeat_interleave(c // m, len(vals)),
+                      j=torch.repeat_interleave(c % m, len(vals)),
+                      v=torch.tensor(vals, device=device, dtype=f32).repeat(
+                          LA_CAND))
+    L = len(cells)
+    mr = cells.mean_rating(db_prob)
+    pot = nuts.potential(lambda q: bpmf_hmc.log_posterior(
+        q, db_prob, mr, cfg, shapes, cells=cells))
+    noise = nuts.GeneratorNoise(lane_generators(13, c.tolist(), len(vals),
+                                                device), shapes.dim,
+                                cfg.max_depth, f32, device, window=1)
+    q0 = st.mode_q.expand(L, shapes.dim)
+    inv_mass = torch.ones_like(q0)
+    eps = nuts.find_reasonable_step_size(noise.search(None), q0, pot,
+                                         inv_mass, 1.0)
+
+    def one_transition(t=[0]):
+        nuts.Counters.reset()
+        nuts.nuts_kernel(q0, pot, eps, inv_mass, noise.step(t[0]),
+                         nuts.NUTSConfig(max_depth=cfg.max_depth))
+        t[0] += 1
+
+    one_transition()  # warm
+    split = transition_split(one_transition)
+    split.update(nuts.Counters.read())
+    # the potential (forward and backward) eager and replayed from its CUDA
+    # graph, 160 lanes and 1; the graph's outputs equal the eager ones
+    for lanes, lp in ((L, lambda q: bpmf_hmc.log_posterior(
+            q, db_prob, mr, cfg, shapes, cells=cells)),
+            (1, lambda q: bpmf_hmc.log_posterior(
+                q, db_prob, st.mean_rating, cfg, shapes))):
+        qx = q0[:lanes] * 1.01
+        eager_pot, graph_pot = (nuts.potential(lp, graph=False),
+                                nuts.potential(lp))
+        got, want = graph_pot(qx), eager_pot(qx)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"graphed potential differs from eager at {lanes} lanes")
+        split[f"potential_ms_{lanes}_lanes"] = dict(
+            eager=cuda_ms(lambda: eager_pot(qx), 20),
+            graph=cuda_ms(lambda: graph_pot(qx), 20))
+    tiles["transition_split_160_lanes"] = split
+    print(json.dumps(dict(phase="nuts_transition_split", **split)),
+          flush=True)
+    out["lookahead"] = tiles
+    del db_prob, base, samps
+
+    stamp("20")
+    # ---- 20. float64 card against CPU: one transition and a short chain
+    cfg64 = NUTS_F64
+    real, known, prob_cpu = nuts_problem("cpu", cfg64["n"], cfg64["m"],
+                                         torch.float64, seed=5, rank=3,
+                                         mask=0.3)
+    prob_gpu = prob_cpu.to(device=device)
+    hcfg = bpmf_hmc.HMCConfig(latent_d=cfg64["d"])
+    shapes = bpmf_hmc.ParamShapes(cfg64["n"], cfg64["m"], cfg64["d"])
+    Lf = cfg64["lanes"]
+    q0 = torch.randn((Lf, shapes.dim), generator=generator(3, "cpu"),
+                     dtype=torch.float64) * 0.3
+    eps0 = torch.linspace(0.02, 0.3, Lf, dtype=torch.float64)
+    gens = [generator(40 + i, "cpu") for i in range(Lf)]
+    rec = RecordedNoise(nuts.GeneratorNoise(gens, shapes.dim, hcfg.max_depth,
+                                            torch.float64, "cpu"))
+
+    def logp_on(prob):
+        return lambda q: bpmf_hmc.log_posterior(q, prob, prob.mean_rating(),
+                                                hcfg, shapes)
+
+    def transition(prob, noise, dev):
+        return nuts.nuts_kernel(
+            q0.to(dev), nuts.potential(logp_on(prob)), eps0.to(dev),
+            torch.ones_like(q0, device=dev), noise.step(0),
+            nuts.NUTSConfig(max_depth=hcfg.max_depth))
+
+    q_cpu, info_cpu = transition(prob_cpu, rec, "cpu")
+    q_gpu, info_gpu = transition(prob_gpu, rec.to(device), device)
+
+    def scaled(a, b):
+        a, b = a.cpu(), b.cpu()
+        return ((a - b).abs() / (1 + b.abs())).max().item()
+
+    chain_rec = RecordedNoise(nuts.GeneratorNoise(
+        [generator(60 + i, "cpu") for i in range(Lf)], shapes.dim,
+        hcfg.max_depth, torch.float64, "cpu"))
+    args = (cfg64["draws"], cfg64["warmup"],
+            nuts.NUTSConfig(max_depth=hcfg.max_depth))
+    s_cpu, i_cpu, a_cpu = nuts.run_nuts(chain_rec, q0, logp_on(prob_cpu),
+                                        *args, return_adaptation=True)
+    s_gpu, i_gpu, a_gpu = nuts.run_nuts(chain_rec.to(device), q0.to(device),
+                                        logp_on(prob_gpu), *args,
+                                        return_adaptation=True)
+    # each draw of the card's chain against the CPU's transition from the
+    # card's draw before it, with that step's noise and step size
+    pot_cpu = nuts.potential(logp_on(prob_cpu))
+    anchor, inv_mass = a_gpu["eps"].cpu(), a_gpu["inv_mass"].cpu()
+    s_gpu_c = s_gpu.cpu()
+    step_q, step_lp = [], []
+    for k in range(1, cfg64["draws"]):
+        sn = chain_rec.step(cfg64["warmup"] + k)
+        eps = anchor * torch.clamp(sn.u_jitter * (1.3 - 0.7) + 0.7, min=0.7)
+        qk, ik = nuts.nuts_kernel(s_gpu_c[:, k - 1], pot_cpu, eps, inv_mass,
+                                  sn, nuts.NUTSConfig(max_depth=hcfg.max_depth))
+        step_q.append(scaled(s_gpu_c[:, k], qk))
+        step_lp.append(scaled(i_gpu.logprob[:, k], ik.logprob))
+    # the CPU chain against itself from a start moved by 1e-15 relative
+    s_moved = nuts.run_nuts(chain_rec, q0 * (1 + 1e-15), logp_on(prob_cpu),
+                            *args)[0]
+    f64 = dict(
+        transition_q=scaled(q_gpu, q_cpu),
+        transition_logprob=scaled(info_gpu.logprob, info_cpu.logprob),
+        transition_leaves_equal=bool(torch.equal(info_gpu.num_leaves.cpu(),
+                                                 info_cpu.num_leaves)),
+        transition_leaves=info_cpu.num_leaves.tolist(),
+        chain_step_draws=max(step_q), chain_step_logprob=max(step_lp),
+        chain_eps=scaled(a_gpu["eps"], a_cpu["eps"]),
+        chain_inv_mass=scaled(a_gpu["inv_mass"], a_cpu["inv_mass"]),
+        chain_leaves_equal=bool(torch.equal(i_gpu.num_leaves.cpu(),
+                                            i_cpu.num_leaves)),
+        tol=NUTS_F64_TOL,
+        figure_free_chain_draws=scaled(s_gpu, s_cpu),
+        figure_free_chain_logprob=scaled(i_gpu.logprob, i_cpu.logprob),
+        figure_cpu_chain_moved_start_1e15=scaled(s_moved, s_cpu))
+    out["card_vs_cpu_f64"] = f64
+    print(json.dumps(dict(phase="nuts_card_vs_cpu_f64", **f64)), flush=True)
+    check(all(v <= NUTS_F64_TOL for k, v in f64.items()
+              if isinstance(v, float) and not k.startswith(("tol", "figure")))
+          and f64["transition_leaves_equal"] and f64["chain_leaves_equal"],
+          f"nuts f64 card against CPU: {f64}")
+
+    stamp("21")
+    # ---- 21. the stan loop with a checkpoint and a resume, and the CLI
+    real, known, sprob = nuts_problem(device, STAN_N, STAN_M, f32, seed=9,
+                                      mask=0.3)
+    pool = sprob.queryable.cpu().numpy().copy()
+    pool.ravel()[np.nonzero(pool.ravel())[0][STAN_POOL:]] = False
+    sprob = dataclasses.replace(sprob, queryable=torch.as_tensor(
+        pool, device=device))
+    keys = ["random", "pred-variance", "exp-variance"]
+    loop_kw = dict(latent_d=STAN_D, rating_values=vals, num_samps=10,
+                   warmup=6, lookahead_samps=6, lookahead_warmup=4,
+                   lookahead_tile=STAN_POOL, seed=0, dtype=f32, device=device)
+    work = ROOT / "build" / "chip_smoke_stan"
+    work.mkdir(parents=True, exist_ok=True)
+    ck = work / "stan_ck.pkl"
+    ck.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    full = run_active_stan(sprob, real, keys, steps=3, verbose=True,
+                           **loop_kw)
+    loop_s = time.perf_counter() - t0
+    run_active_stan(sprob, real, keys, steps=2, checkpoint_path=str(ck),
+                    **loop_kw)
+    resumed = run_active_stan(sprob, real, keys, steps=3,
+                              checkpoint_path=str(ck), verbose=True,
+                              **loop_kw)
+    loop = dict(s=loop_s, keys=keys)
+    for k in keys:
+        a, b = full[k], resumed[k]
+        loop[k] = dict(picks=[r[2] for r in a[1:]],
+                       resumed_picks=[r[2] for r in b[1:]],
+                       errs=[r[1] for r in a], resumed_errs=[r[1] for r in b])
+        # the replayed records are the interrupted run's own; the step after
+        # the resume draws the uninterrupted run's seeds, so a pick that
+        # follows from the seeds alone (random) is the same
+        check(len(b) == 3 and [r[0] for r in b] == [r[0] for r in a]
+              and [r[2] for r in b[:2]] == [r[2] for r in a[:2]]
+              and all(math.isclose(x[1], y[1], rel_tol=1e-6)
+                      for x, y in zip(a[:2], b[:2]))
+              and all(math.isfinite(r[1]) for r in a + b)
+              and all(pool[r[2]] for r in b[1:]),
+              f"stan loop resume {k}: {loop[k]}")
+    check([r[2] for r in resumed["random"]] == [r[2] for r in full["random"]],
+          f"stan loop resume: random picks {loop['random']}")
+    out["stan_loop"] = loop
+    print(json.dumps(dict(phase="stan_loop_resume", **loop)), flush=True)
+
+    creal, cknown, _ = nuts_problem("cpu", 12, 10, torch.float64, seed=4,
+                                    mask=0.3)
+    data = work / "stan_cli.npz"
+    save_npz_schema(str(data), {"_real": creal, "_known": cknown,
+                                "_rating_vals": np.asarray(vals)})
+    cli_ck = work / "stan_cli_ck.pkl"
+    cli_ck.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "amf_tpu_torch.run.bpmf", "--load-data",
+         str(data), "-D", "3", "-s", "2", "-S", "20", "--lookahead-samps",
+         "10", "--lookahead-warmup", "5", "--float32", "--checkpoint",
+         str(cli_ck), "--save-results", str(work / "stan_cli.pkl"),
+         "pred-variance", "exp-variance"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    cli = dict(s=time.perf_counter() - t0, rc=proc.returncode,
+               checkpoint=cli_ck.is_file(),
+               tail=proc.stdout.strip().splitlines()[-3:])
+    print(json.dumps(dict(phase="bpmf_cli", **cli)), flush=True)
+    check(proc.returncode == 0 and cli_ck.is_file(),
+          f"bpmf CLI: {cli} {proc.stderr[-2000:]}")
+    out["cli"] = cli
+    return out
+
+
 def main() -> int:
     if not (ROOT / "amf_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: amf_tpu_torch/ is not beside this script; run it "
@@ -1919,6 +2391,8 @@ def main() -> int:
     wide = wide_main_paths(device, prob, real, knowable, rng, work)
     # ---- 13-16. the variational (ActivePMF) path
     vn_phases(device)
+    # ---- 17-21. the NUTS BPMF path
+    nuts_phases(device)
     stamp("end")
 
     def wide_row(row, launches, src):

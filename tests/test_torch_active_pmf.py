@@ -143,7 +143,7 @@ def test_cli_runs_on_the_cpu_saves_and_reloads_its_model(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--scan"], ["--scan-evals"],
                                   ["--shard-candidates", "2"],
-                                  ["--checkpoint", "ck.pkl"]])
+                                  ["--scan", "--shard-candidates", "2"]])
 def test_cli_unported_flags_exit_with_a_reason(flag):
     from amf_tpu_torch.run import active_pmf
 

@@ -25,7 +25,10 @@ SLICE = [
     "amf_tpu_torch.models.vnormal", "amf_tpu_torch.models.mnormal",
     "amf_tpu_torch.active.criteria", "amf_tpu_torch.active.lookahead",
     "amf_tpu_torch.active.loop", "amf_tpu_torch.run.active_pmf",
-    "amf_tpu_torch.entry",
+    "amf_tpu_torch.entry", "amf_tpu_torch.utils.checkpoint",
+    "amf_tpu_torch.mcmc", "amf_tpu_torch.mcmc.nuts",
+    "amf_tpu_torch.models.bpmf_hmc", "amf_tpu_torch.models.sample_stats",
+    "amf_tpu_torch.active.stan_loop", "amf_tpu_torch.run.bpmf",
 ]
 
 
@@ -44,6 +47,34 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n")
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
+
+
+def test_slice_lists_every_port_module():
+    """SLICE (imported above without JAX) holds every module of the port
+    (the subpackages come with their modules)."""
+    import pkgutil
+
+    import amf_tpu_torch
+
+    found = {m.name for m in pkgutil.walk_packages(amf_tpu_torch.__path__,
+                                                   "amf_tpu_torch.")
+             if not m.ispkg}
+    assert found <= set(SLICE), sorted(found - set(SLICE))
+
+
+def test_chip_smoke_imports_no_jax():
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "amf_tpu"))
+    assert not bad, bad
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -94,6 +125,13 @@ def test_default_device_is_cuda_with_no_cpu_fallback():
         active_pmf.main(["pred"])
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
+    from amf_tpu_torch.active.stan_loop import run_active_stan
+    from amf_tpu_torch.run import bpmf
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_active_stan(None, None, ["random"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bpmf.main(["--load-data", "never-read.npz"])
 
 
 def test_constructors_default_to_the_card():
