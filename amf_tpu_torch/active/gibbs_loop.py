@@ -145,7 +145,10 @@ def run_active_gibbs(
     def fit_and_sample(prob, k):
         pst = pmf.init_state(generator(fold_in(k, 1), device), n, m, pcfg,
                              prob, dtype=dtype, device=device)
-        pst = pmf.do_fit(pst, prob, pcfg, fit_type=fit_type)
+        # 'mini-valid' draws its permutations and validation cells from
+        # the step's seed, as the JAX package's draw from its key
+        pst = pmf.do_fit(pst, prob, pcfg, fit_type=fit_type,
+                         generator=generator(k, device))
         return pst, sample(pst, prob, fold_in(k, 2))
 
     def refit_and_sample(pst, prob, k):

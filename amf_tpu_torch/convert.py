@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections.abc import Mapping
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,9 @@ import torch
 from amf_tpu_torch.models.bpmf_gibbs import ChainState, PredStats
 from amf_tpu_torch.models.bpmf_hmc import BPMFState
 from amf_tpu_torch.models.mnormal import MNState
+from amf_tpu_torch.models.newitems import NewItemsState
 from amf_tpu_torch.models.pmf import PMFState
+from amf_tpu_torch.models.ratingconc import RCData
 from amf_tpu_torch.models.vnormal import VNState
 from amf_tpu_torch.types import Problem
 from amf_tpu_torch.utils.platform import resolve_device
@@ -73,6 +75,20 @@ def hmc_state(src, device=None, dtype=None) -> BPMFState:
     """``BPMFState`` (NUTS BPMF) from mode_q, mode_lp, mean_rating,
     adapt_eps, adapt_inv_mass."""
     return _build(BPMFState, src, device, dtype)
+
+
+def rc_state(x, data, device=None, dtype=None
+             ) -> Tuple[torch.Tensor, RCData]:
+    """The maxent multipliers ``x`` and their ``RCData`` (from F, prior,
+    log_prior, mu, nu, alpha, beta, c, d, qmask)."""
+    return (_tensor(x, resolve_device(device), dtype),
+            _build(RCData, data, device, dtype))
+
+
+def newitems_state(src, device=None, dtype=None) -> NewItemsState:
+    """``NewItemsState`` (cold-start BPMF) from mode_q, mode_lp,
+    mean_rating, U_fixed, V_fixed."""
+    return _build(NewItemsState, src, device, dtype)
 
 
 def vn_state(src, device=None, dtype=None) -> VNState:

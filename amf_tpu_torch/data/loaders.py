@@ -1,7 +1,7 @@
 """IO for the reference npz/pkl data schema (numpy only).
 
-A copy of ``amf_tpu/data/loaders.py``'s ``load_npz_schema`` and
-``save_npz_schema``: importing the JAX package would import JAX.
+A copy of ``amf_tpu/data/loaders.py``: importing the JAX package would
+import JAX.
 
 Schema (documented at reference stan-bpmf/bpmf.py:744-754, produced by
 choose_training.py:215-259 and generate.py:139-146):
@@ -14,8 +14,10 @@ choose_training.py:215-259 and generate.py:139-146):
 
 from __future__ import annotations
 
+import gzip
+import os
 import pickle
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -62,3 +64,34 @@ def load_npz_schema(path: str) -> Dict[str, np.ndarray]:
         if key in data and data[key] is not None:
             out[key] = np.asarray(data[key]).astype(bool)
     return out
+
+
+def load_dense_matrix(path: str) -> np.ndarray:
+    """Load a dense matrix from .npy or gzipped .npy (e.g. the reference's
+    movielens-100k/ratings_matrix.npy.gz, read at choose_training.py:205-209)."""
+    try:
+        with gzip.GzipFile(path, "rb") as f:
+            return np.load(f)
+    except (OSError, gzip.BadGzipFile):
+        return np.load(path)
+
+
+def find_reference_dataset(name: str, root: Optional[str] = None) -> Optional[str]:
+    """Locate a known dataset file under a reference checkout, if present.
+
+    ``root`` is the checkout, or the ``AMF_REFERENCE_ROOT`` environment
+    variable when it is None; with neither, or without the file, None. Reads
+    data files (never code) from an existing checkout of the reference
+    repository.
+    """
+    root = root or os.environ.get("AMF_REFERENCE_ROOT")
+    candidates = {
+        "movielens-100k": "movielens-100k/ratings_matrix.npy.gz",
+        "movielens-75k": "movielens-100k/half_ratings.npy.gz",
+        "movielens-58k": "movielens-100k/half_ratings_70.npy.gz",
+    }
+    rel = candidates.get(name)
+    if root is None or rel is None:
+        return None
+    path = os.path.join(root, rel)
+    return path if os.path.exists(path) else None

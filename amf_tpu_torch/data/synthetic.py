@@ -1,15 +1,16 @@
 """Synthetic dataset generator (numpy only).
 
-A copy of ``amf_tpu/data/synthetic.py``'s ``make_fake_data`` and
-``get_ratings_mask``: importing the JAX package would import JAX. Reference
-equivalents: ``active_pmf.make_fake_data``/``get_ratings``
-(python-pmf/active_pmf.py:926-1010). Every function takes a seeded rng.
+A copy of ``amf_tpu/data/synthetic.py``: importing the JAX package would
+import JAX. Reference equivalents: ``active_pmf.make_fake_data``/
+``get_ratings`` (python-pmf/active_pmf.py:926-1010) and the exact-class-count
+low-rank generator ``generate.py`` (generate.py:17-146). Every function
+takes a seeded rng.
 """
 
 from __future__ import annotations
 
 import numbers
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -106,3 +107,61 @@ def make_fake_data(
 
     known = get_ratings_mask(real, mask_type, rng)
     return real.astype(np.float64), known, vals
+
+
+# ---------------------------------------------------------------------------
+# generate.py equivalent: discrete low-rank matrices with exact class counts
+
+
+def _make_orig(m, n, values, probs, rng):
+    values = np.asarray(values, dtype=np.float64)
+    if probs is None:
+        p = np.full(len(values), 1.0 / len(values))
+    else:
+        p = np.asarray(probs, dtype=np.float64)
+        p = p / p.sum()
+    idx = rng.choice(len(values), size=(m, n), p=p)
+    return values[idx]
+
+
+def _low_rank_reconstruct(orig, k, values):
+    u, s, vh = np.linalg.svd(orig, full_matrices=False)
+    approx = (u[:, :k] * s[:k]) @ vh[:k, :]
+    values = np.asarray(values, dtype=np.float64)
+    idx = np.argmin(np.abs(approx[..., None] - values[None, None, :]), axis=-1)
+    return values[idx]
+
+
+def known_diag(m: int, n: int) -> np.ndarray:
+    """Wrap-around diagonal mask (reference: generate.known_diag :91-96)."""
+    known = np.zeros((m, n), dtype=bool)
+    indices = np.arange(max(m, n))
+    known[indices % m, indices % n] = True
+    return known
+
+
+def gen_known_diag_counts(
+    m: int,
+    n: int,
+    rank: int,
+    known_pos: int,
+    unknown_pos: int,
+    vals: Sequence[float] = DEF_VALS,
+    probs=None,
+    cutoff: float = 4.0,
+    rng=None,
+    max_tries: int = 200_000,
+) -> np.ndarray:
+    """Rejection-sample a snapped low-rank matrix with exact positive counts
+    in the diag-known / unknown partitions (reference: generate.py:69-103).
+    """
+    rng = _rng(rng)
+    known = known_diag(m, n)
+    unknown = ~known
+    for _ in range(max_tries):
+        ary = _low_rank_reconstruct(_make_orig(m, n, vals, probs, rng), rank, vals)
+        if (ary[known] >= cutoff).sum() == known_pos and (
+            ary[unknown] >= cutoff
+        ).sum() == unknown_pos:
+            return ary
+    raise RuntimeError("gen_known_diag_counts: exceeded max_tries")

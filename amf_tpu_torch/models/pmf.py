@@ -14,10 +14,13 @@ never copied per lane, each lane's own cell is patched into its residual.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import time
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from amf_tpu_torch.ops.lbfgsb import lbfgsb
 from amf_tpu_torch.ops.linesearch import (
     DescentInfo, _bcast, adaptive_descent, adaptive_descent_poly,
 )
@@ -461,18 +464,217 @@ def parse_fit_type(string: str) -> tuple:
     return tuple(res)
 
 
+def fit_lbfgs(
+    state: PMFState, problem: Problem, cfg: PMFConfig,
+    max_iters: int = 500,
+) -> PMFState:
+    """MAP fit via (unconstrained) L-BFGS, the faster alternative to the
+    reference's adaptive-LR ascent for large problems (SURVEY.md §7 build
+    plan). Same optimum, different trajectory; use fit() for parity runs.
+    The gradient is the closed form of ``gradient``; search trials
+    evaluate the value alone.
+    """
+    n, m = problem.shape
+    d = cfg.latent_d
+
+    def split(x):
+        return x[:, : n * d].reshape(n, d), x[:, n * d:].reshape(m, d)
+
+    def fun(x):
+        f, (gu, gv) = _neg_ll_and_ascent(state, problem, cfg, split(x), None)
+        return f[None], -torch.cat([gu.reshape(-1), gv.reshape(-1)])[None]
+
+    def value(x):
+        U, V = split(x)
+        return -log_likelihood(state, problem, cfg, U=U, V=V)[None]
+
+    x0 = torch.cat([state.U.reshape(-1), state.V.reshape(-1)])[None]
+    res = lbfgsb(fun, x0, -torch.inf, torch.inf, max_iters=max_iters,
+                 pgtol=1e-8, value_fn=value)
+    U, V = split(res.x)
+    return dataclasses.replace(state, U=U, V=V)
+
+
+# ---------------------------------------------------------------------------
+# Minibatch SGD path (reference: fit_minibatches* pmf.py:226-284)
+
+
+class MiniValidTimes:
+    """Wall seconds of every 'mini-valid' epoch since ``reset``: the host
+    clock from the epoch's permutation to its validation error, which waits
+    for the card. A graphed fit's first epoch includes the capture."""
+
+    epochs: List[float] = []
+
+    @classmethod
+    def reset(cls):
+        cls.epochs = []
+
+
+class MiniBatchNoise:
+    """The draws of the 'mini-valid' fit, from one ``torch.Generator``: the
+    validation subset (on the host) and one permutation of all cells an
+    epoch (on the generator's device). The tests replay the JAX package's
+    key stream by overriding both methods."""
+
+    def __init__(self, generator: torch.Generator):
+        self.gen = generator
+
+    def valid_subset(self, rated_idx: np.ndarray, size: int) -> np.ndarray:
+        """``size`` of the rated flat cells ``rated_idx``, drawn without
+        replacement."""
+        pick = torch.randperm(rated_idx.size, generator=self.gen,
+                              device=self.gen.device)[:size]
+        return rated_idx[pick.cpu().numpy()]
+
+    def permutation(self, cap: int) -> torch.Tensor:
+        """The next epoch's permutation of the ``cap`` flat cells."""
+        return torch.randperm(cap, generator=self.gen, device=self.gen.device)
+
+
+def fit_minibatches_until_validation(
+    state: PMFState,
+    problem: Problem,
+    cfg: PMFConfig,
+    noise,
+    batch_size: int,
+    valid_size: int,
+    lr: float = 1.0,
+    momentum: float = 0.8,
+    stop_thresh: float = 1e-3,
+    max_epochs: int = 500,
+    graph: bool = True,
+) -> PMFState:
+    """Momentum SGD over shuffled rating minibatches with validation-based
+    early stopping (reference: pmf.py:226-284, fit type 'mini-valid').
+
+    As in the JAX package: each epoch walks one permutation of all n m
+    cells, padded with its own start to whole batches; cells outside the
+    training set are masked out of a batch, and every batch steps (one
+    with no training cell takes the prior's step alone: its count clamps
+    to 1). The validation subset of the rated cells is drawn once on the
+    host; the fit stops after the first epoch whose validation RMSE
+    improves by less than ``stop_thresh``. ``noise``: a ``torch.Generator``
+    or a ``MiniBatchNoise``.
+
+    An epoch is ceil(n m / batch_size) steps of about 20 launches each, with
+    no host wait. On the card the epoch's steps are captured once in one
+    CUDA graph (static shapes) and the graph is replayed every epoch;
+    ``graph=False``, or the CPU, runs them eagerly.
+    """
+    if isinstance(noise, torch.Generator):
+        noise = MiniBatchNoise(noise)
+    n, m = problem.shape
+    cap = n * m
+    device, dtype = state.U.device, state.U.dtype
+    rated_flat = problem.rated.flatten()
+    rated_idx = np.nonzero(rated_flat.cpu().numpy())[0]
+    valid_idx = torch.as_tensor(
+        noise.valid_subset(rated_idx, min(valid_size, rated_idx.size)),
+        device=device)
+    valid_i, valid_j = valid_idx // m, valid_idx % m
+    r_flat = problem.R_obs.flatten().to(dtype)
+    valid_r = r_flat[valid_idx]
+    train = rated_flat.clone()
+    train[valid_idx] = False
+
+    n_batches = (cap + batch_size - 1) // batch_size
+    pad = n_batches * batch_size - cap
+    U, V = state.U.clone(), state.V.clone()
+    u_inc, v_inc = torch.zeros_like(U), torch.zeros_like(V)
+    perm = torch.empty(cap + pad, dtype=torch.int64, device=device)
+
+    def epoch():
+        for b in range(n_batches):
+            sel = perm[b * batch_size:(b + 1) * batch_size]
+            valid = train[sel]
+            cnt = torch.clamp(valid.sum().to(dtype), min=1)
+            ii, jj = sel // m, sel % m
+            u_rows, v_rows = U[ii], V[jj]
+            pred = (u_rows * v_rows).sum(1)
+            if cfg.subtract_mean:
+                pred = pred + state.mean_rating
+            resid = torch.where(valid, (r_flat[sel] - pred) / state.sigma_sq,
+                                0.0)
+            gu = torch.zeros_like(U).index_add_(0, ii, resid[:, None] * v_rows)
+            gv = torch.zeros_like(V).index_add_(0, jj, resid[:, None] * u_rows)
+            gu = gu - U / state.sigma_u_sq
+            gv = gv - V / state.sigma_v_sq
+            step = lr / cnt
+            u_inc.copy_(u_inc * momentum + gu * step)
+            v_inc.copy_(v_inc * momentum + gv * step)
+            U.add_(u_inc)
+            V.add_(v_inc)
+
+    run = epoch
+    if graph and device.type == "cuda":
+        run = _graphed(epoch, (U, V, u_inc, v_inc))
+
+    last_valid = torch.inf
+    for _ in range(max_epochs):
+        t0 = time.perf_counter()
+        p = noise.permutation(cap).to(device)
+        perm.copy_(torch.cat([p, p[:pad]]) if pad else p)
+        run()
+        pred_valid = (U[valid_i] * V[valid_j]).sum(1)
+        if cfg.subtract_mean:
+            pred_valid = pred_valid + state.mean_rating
+        valid_err = float(torch.sqrt(torch.mean((pred_valid - valid_r) ** 2)))
+        MiniValidTimes.epochs.append(time.perf_counter() - t0)
+        if valid_err > last_valid - stop_thresh:
+            break
+        last_valid = valid_err
+    return dataclasses.replace(state, U=U, V=V)
+
+
+def _graphed(body, state):
+    """``body`` (in place on ``state``'s tensors) as one CUDA graph, captured
+    at the first call: warm-up runs would move the state, so it is saved
+    before them and restored before the capture and before the first
+    replay."""
+    captured = {}
+
+    def run():
+        if not captured:
+            saved = [t.clone() for t in state]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body()  # a warm-up run allocates outside the graph
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                body()
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            captured["graph"] = g
+        captured["graph"].replay()
+
+    return run
+
+
 def do_fit(
     state: PMFState, problem: Problem, cfg: PMFConfig,
     fit_type: tuple = ("batch",),
+    generator=None,
 ) -> PMFState:
-    """Dispatch on fit type (reference: pmf.py:217-224). Only 'batch' is
-    ported; the others are a ROADMAP item of the port."""
-    kind = fit_type[0]
+    """Dispatch on fit type (reference: pmf.py:217-224): 'batch', 'lbfgs'
+    (its argument: max_iters) and 'mini-valid' (batch_size, valid_size,
+    then lr, momentum, stop_thresh, max_epochs), which draws from
+    ``generator`` (a ``torch.Generator`` or a ``MiniBatchNoise``; None:
+    a generator seeded 0 on the state's device)."""
+    kind, *args = fit_type
     if kind == "batch":
         return fit(state, problem, cfg)[0]
-    raise NotImplementedError(
-        f"fit type {kind!r} is not ported yet (ROADMAP.md, port queue A, "
-        "'Left out of the first slice': the lbfgs and mini-valid fit types)")
+    if kind == "lbfgs":
+        return fit_lbfgs(state, problem, cfg, *args)
+    if kind == "mini-valid":
+        if generator is None:
+            generator = torch.Generator(device=state.U.device)
+            generator.manual_seed(0)
+        return fit_minibatches_until_validation(state, problem, cfg,
+                                                generator, *args)
+    raise ValueError(f"unknown fit type {kind!r}")
 
 
 def rmse(state: PMFState, problem: Problem, cfg: PMFConfig, real, on=None):

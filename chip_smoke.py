@@ -22,6 +22,12 @@ hand-written kernel of them against its plain PyTorch version on the card:
     DrugBank stan shape (94 x 425, d = 20) and at the MovieLens shape: base
     chains, lookahead tiles, its stan loop with a checkpoint and a resume,
     and its ``bpmf`` CLI; this path runs autograd and no hand-written
+    kernel;
+  * RatingConcentration (the maxent dual on a lane-batched projected
+    L-BFGS) at the MovieLens shape in float64, its loop and ``active_rc``
+    CLI; cold-start BPMF at the MovieLens shape with 10 % new items, d =
+    20, and its ``bpmf_newitems`` CLI; the PMF ``lbfgs`` and ``mini-valid``
+    fit types; these run PyTorch's dense tensor code and no hand-written
     kernel.
 
     python3 chip_smoke.py
@@ -75,12 +81,12 @@ Phases (each raises on failure):
      128 lanes, B2, B3 and B5 at 8);
  13. the vn lookahead, bench.py's vn workload (total-variance, 50 + 50
      refit steps, 8 nodes, tiles of 64 candidates, f32): every candidate
-     with cov_param="chol", one tile with "psd-project" and its host-side
-     split (eigh, slogdet, autograd, the lane refit), a 4-candidate chol
-     tile's device split; every score finite;
+     with cov_param="chol", one 16-candidate tile with "psd-project" and
+     its host-side split (eigh, slogdet, autograd, the lane refit), a
+     4-candidate chol tile's device split; every score finite;
  14. float64 tiles of total-variance and pred-entropy-bound-approx on the
      card and on the CPU from the same inputs and lane noise, <= 1e-8;
- 15. run_active_pmf: 3 records for vn (pred-variance, total-variance) and 2
+ 15. run_active_pmf: 2 records for vn (pred-variance, total-variance) and 2
      for mn (pred-variance, total-variance-approx, on a 12 x 12 problem);
  16. the port's entry() step.
  17. NUTS base chains at the DrugBank shape, f32, 100 draws after 50
@@ -91,7 +97,7 @@ Phases (each raises on failure):
      50 warmup), the same readings;
  19. NUTS lookahead tiles at the DrugBank shape from phase 17's chain:
      exp-variance over 32 candidates x 5 values (160 lanes, 100 draws
-     after 50 warmup) and exp-entropy-est over 8 (30 after 15): every
+     after 50 warmup) and exp-entropy-est over 4 (30 after 15): every
      score finite,
      tile time, lockstep against the lanes' mean leapfrogs, syncs; and the
      profiler's split of one 160-lane transition (potential, RNG, syncs);
@@ -102,6 +108,29 @@ Phases (each raises on failure):
  21. run_active_stan, 3 records (random, pred-variance, exp-variance) on a
      12-cell pool, against a run stopped at 2 records with a checkpoint and
      resumed to 3; the ``bpmf`` CLI with ``--checkpoint``.
+ 22. the maxent fit at the MovieLens shape, float64 (17 features, 89,250
+     multipliers): iterations, final projected-gradient norm, search
+     trials, wall time;
+ 23. a maxent lookahead tile there: 16 candidates x 5 values (80 lanes) of
+     60 warm-started iterations, every score finite, tile time, peak
+     memory, the lanes' mean iterations against the lockstep count; and
+     float64 card against CPU on the 10 x 10 experiment data
+     (experiments/10x10_discrete2_d2), every candidate, 20 iterations,
+     <= 1e-8;
+ 24. run_active_rc on that data, all four keys, 3 records, against a run
+     stopped at 2 with a checkpoint and resumed to 3; the ``active_rc``
+     CLI stopped and resumed;
+ 25. cold start at the MovieLens shape, the last 168 columns new, d = 20,
+     f32: phase 1 (60 draws after 30 on the old columns), the phase-2
+     chain (100 after 50) and an exp-variance tile of 32 candidates x 5
+     values (160 lanes, 100 after 50): wall times, tree depth,
+     divergences, peak memory, every score finite;
+ 26. the ``bpmf_newitems`` CLI with ``--initial-fit-file`` and
+     ``--checkpoint`` on a 12 x 10 problem, stopped and resumed;
+ 27. the PMF fit types at the MovieLens shape, d = 10, f32: batch, lbfgs
+     and mini-valid (their log posteriors), one mini-valid epoch eager and
+     as one CUDA graph, in turns, and three graphed epochs against three
+     eager ones in float64, <= 1e-8.
 The launch counts are reset before phases 3, 7, 8, 10, 11 and each run of
 12, and read after phases 4, 7, 8, 10, 11 and each run of 12, before the
 comparisons with the plain versions; phases 7, 8 and 10 also count the
@@ -200,6 +229,9 @@ WIDE_REFIT_LANES = 8
 VN_N, VN_D, VN_MASK = 24, 2, 0.2
 VN_PMF_STEPS, VN_FIT_STEPS, VN_REFIT_STEPS = 200, 100, 50
 VN_NODES, VN_TILE = 8, 64
+# one psd-project tile of 16 candidates (64 until phases 22-27 came: ~44 s,
+# 97 % eigh), so that the smoke keeps to its time
+VN_PSD_CAND = 16
 VN_MN_N = 12
 # card against CPU in float64: the same inputs and lane noise, the same
 # operations in other kernels' orders; tiles of 8 and 4 candidates
@@ -207,18 +239,20 @@ VN_F64_TILE, VN_PEB_TILE, VN_F64_RTOL = 8, 4, 1e-8
 # the NUTS BPMF path (phases 17-21). The reference's DrugBank stan
 # configuration: 94 x 425, d = 20, 200 draws after 100 warmup
 # (BENCHMARKS.md:243-244), here 100 after 50 so that the smoke keeps well
-# inside its time (a transition runs ~220 leapfrogs: PERF.md §5), on
-# synthetic ratings 1..5, f32; 1 chain and 4 chains as lanes
+# inside its time (a transition runs ~220 leapfrogs: PERF.md §5; at 60
+# after 30 the chains' acceptance fell to 0.0004-0.014), on synthetic
+# ratings 1..5, f32; 1 chain and 4 chains as lanes
 DB_N, DB_M, DB_D, DB_SAMPS, DB_WARMUP, DB_CHAINS = 94, 425, 20, 100, 50, 4
 # MovieLens shape (bench.py) at HMCConfig's d = 5 and the CLI's 100 draws
 # after 50 warmup
 ML_D, ML_SAMPS, ML_WARMUP = 5, 100, 50
 # a lookahead tile at the DrugBank shape: 32 candidates x 5 values = 160
 # lanes (exp-variance) at the CLI's lookahead budget (100 draws after 50
-# warmup), and 8 candidates (exp-entropy-est) at 30 after 15, so that the
-# smoke keeps to its time (its matrix-normal fit streams every draw at every
-# sweep: PERF.md §5)
-LA_CAND, LA_ENT_CAND = 32, 8
+# warmup), and 4 candidates (exp-entropy-est; 8 until phases 22-27 came)
+# at 30 after 15, so that the smoke keeps to its time (its matrix-normal
+# fit streams every draw at every sweep: PERF.md §5; at 20 draws after 10
+# its fits give NaN)
+LA_CAND, LA_ENT_CAND = 32, 4
 LA_BUDGET = {"total-variance": (100, 50), "entropy-est": (30, 15)}
 # float64 card against CPU: 12 x 10, d = 3, 6 lanes, a chain of 20 warmup
 # and 10 draws, the same noise on both. One transition, and each draw of
@@ -230,6 +264,32 @@ NUTS_F64_TOL = 1e-8
 # the stan loop: 3 records on a 24 x 30 problem with a 12-cell pool, a
 # checkpoint after 2 and a resume to 3; the CLI on a 12 x 10 problem
 STAN_N, STAN_M, STAN_D, STAN_POOL = 24, 30, 5, 12
+# RatingConcentration (phases 22-24): the fit and a lookahead tile at the
+# MovieLens shape in float64 (17 features for ratings 1..5, a dual of
+# 2 (n + m) 17 = 89,250 multipliers), 16 candidates x 5 values = 80 lanes
+# of 60 warm-started iterations; the card against the CPU, the loop and
+# the CLI on the reference experiment's own 10 x 10 data
+RC_LA_CAND, RC_LA_ITERS, RC_F64_TOL = 16, 60, 1e-8
+# the loop's and the CLI's refits are cut to 20 iterations (the CLI's
+# default is 500) and their lookaheads, and the card-vs-CPU check's, to 20
+# (60), so that phases 23-24 keep to their time: a refit there is
+# launch-bound, ~30 search trials an iteration (PERF.md §5)
+RC_LOOP_ITERS, RC_SHORT_LA_ITERS = 20, 20
+RC_SMALL = ROOT / "experiments" / "10x10_discrete2_d2" / "data.pkl"
+# cold start (phase 25): movielens-58k-newmovies-10pct-20d's configuration
+# (experiments/README.md:48-49) on synthetic ratings at the MovieLens shape:
+# the last 168 columns (10 %) new, d = 20, f32, the CLI's phase-2 chain of
+# 100 draws after 50 and lookahead of 100 after 50 over 32 candidates x 5
+# values (160 lanes); phase 1 (the CLI: 200 draws after 100) is cut to 60
+# draws after 30, so that the smoke keeps to its time
+CS_NEW, CS_D, CS_SAMPS, CS_FIT, CS_LA_CAND = 168, 20, 100, 60, 32
+# the fit types (phase 27) at the MovieLens shape, d = 10, f32: mini-valid
+# with batches of 1,000 cells (1,587 steps an epoch), 500 validation cells,
+# the learning rate of the JAX package's test (tests/test_pmf.py:158), at
+# most 20 epochs
+FT_D, FT_BATCH, FT_VALID, FT_LR, FT_MAX_EPOCHS = 10, 1000, 500, 0.2, 20
+# the graphed mini-valid epochs against the eager ones, float64, scaled
+FT_GRAPH_TOL = 1e-8
 
 
 START = time.perf_counter()
@@ -1046,14 +1106,15 @@ def vn_phases(device):
             scores, tile_ms = timed_ms(lambda: run(part))
         else:
             # one tile, timed under the host-side profiler that splits it
-            part = cand[:VN_TILE]
+            part = cand[:VN_PSD_CAND]
             box = []
             split = vn_split(lambda: box.append(run(part)))
             scores, tile_ms = box[0], split["wall_ms"]
         finite = int(torch.isfinite(scores).sum())
         row = sweep[cov_param] = dict(
             candidates=len(part), tiles=-(-len(part) // VN_TILE),
-            lanes_a_tile=VN_TILE * VN_NODES, s=tile_ms / 1e3,
+            lanes_a_tile=min(len(part), VN_TILE) * VN_NODES,
+            s=tile_ms / 1e3,
             candidates_per_s=1e3 * len(part) / tile_ms, finite=finite,
             scores_min=scores.min().item(), scores_max=scores.max().item())
         check(finite == len(part),
@@ -1116,7 +1177,7 @@ def vn_phases(device):
     # 12 x 12 one (its row covariance then fits cuSOLVER's batched eigh)
     loops = {}
     for model, keys, steps, n in (
-            ("vn", ["pred-variance", "total-variance"], 3, VN_N),
+            ("vn", ["pred-variance", "total-variance"], 2, VN_N),
             ("mn", ["pred-variance", "total-variance-approx"], 2, VN_MN_N)):
         lreal, lprob, _, _ = vn_problem(device, f32, n=n)
         t0 = time.perf_counter()
@@ -1582,6 +1643,405 @@ def nuts_phases(device):
           f"bpmf CLI: {cli} {proc.stderr[-2000:]}")
     out["cli"] = cli
     return out
+
+
+def rc_phases(device, real, known):
+    """Phases 22-24: RatingConcentration (ops/lbfgsb, models/ratingconc,
+    active/rc_loop, run/active_rc), which runs no hand-written kernel: its
+    dual and closed-form gradient are PyTorch's dense masked softmax."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch import types
+    from amf_tpu_torch.active.rc_loop import run_active_rc
+    from amf_tpu_torch.data.loaders import load_npz_schema
+    from amf_tpu_torch.models import ratingconc as rc
+    from amf_tpu_torch.ops import lbfgsb
+
+    out = {}
+    f64 = torch.float64
+    cfg = rc.RCConfig()
+
+    def pg_norm(x, data):
+        _, g = rc.dual_value_and_grad(x, data)
+        return float(torch.amax(torch.abs(
+            torch.clamp(x - g, 0.0, cfg.upper) - x)))
+
+    stamp("22")
+    # ---- 22. the maxent fit at the MovieLens shape, f64
+    prob = types.problem_from_dense(real, known, dtype=f64, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lbfgsb.Counters.reset()
+    t0 = time.perf_counter()
+    x, data, iters = rc.fit(prob, cfg)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit = dict(n=N, m=M, features=int(data.F.shape[1]), dim=int(x.shape[0]),
+               iters=int(iters), pg_norm=pg_norm(x, data), s=fit_s,
+               dual=float(rc.dual_objective(x, data)),
+               dual_at_zero=float(rc.dual_objective(torch.zeros_like(x), data)),
+               **lbfgsb.Counters.read(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(json.dumps(dict(phase="rc_fit", **fit)), flush=True)
+    check(math.isfinite(fit["dual"]) and fit["dual"] <= fit["dual_at_zero"]
+          and bool(torch.isfinite(x).all()), f"rc fit: {fit}")
+    out["fit"] = fit
+
+    stamp("23")
+    # ---- 23. a lookahead tile at the MovieLens shape: 16 candidates x 5
+    # values = 80 lanes of 60 warm-started iterations, f64
+    cand = torch.nonzero(prob.queryable.flatten())[:RC_LA_CAND, 0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lbfgsb.Counters.reset()
+    t0 = time.perf_counter()
+    scores = rc.entropy_lookahead_scores(
+        x, data, prob, cfg, lookahead_iters=RC_LA_ITERS, cand=cand,
+        candidate_tile=RC_LA_CAND)
+    torch.cuda.synchronize()
+    c = lbfgsb.Counters.read()
+    tile = dict(candidates=RC_LA_CAND, lanes=RC_LA_CAND * len(VALS),
+                iters=RC_LA_ITERS, s=time.perf_counter() - t0,
+                lockstep_iterations=c["iterations"],
+                lane_mean_iterations=c["lane_iterations"]
+                / (RC_LA_CAND * len(VALS)),
+                trials=c["trials"], syncs=c["syncs"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                finite=bool(torch.isfinite(scores).all()),
+                score_range=[float(scores.min()), float(scores.max())])
+    print(json.dumps(dict(phase="rc_lookahead_tile", **tile)), flush=True)
+    check(tile["finite"], f"rc lookahead tile: {tile}")
+    out["tile"] = tile
+
+    # the card against the CPU in f64 on the reference experiment's 10 x 10
+    # data, every candidate, from the same multipliers
+    small = load_npz_schema(str(RC_SMALL))
+    sreal = small["_real"]
+    sknown = np.zeros(sreal.shape, dtype=bool)
+    sknown[small["_ratings"][:, 0].astype(int),
+           small["_ratings"][:, 1].astype(int)] = True
+    sprob_cpu = types.problem_from_dense(sreal, sknown, dtype=f64,
+                                         device="cpu")
+    sprob = sprob_cpu.to(device=device)
+    xs_cpu, ds_cpu, _ = rc.fit(sprob_cpu, cfg)
+    xs, ds, _ = rc.fit(sprob, cfg)
+    t0 = time.perf_counter()
+    want = rc.entropy_lookahead_scores(xs_cpu, ds_cpu, sprob_cpu, cfg,
+                                       lookahead_iters=RC_SHORT_LA_ITERS)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = rc.entropy_lookahead_scores(xs_cpu.to(device), ds, sprob, cfg,
+                                      lookahead_iters=RC_SHORT_LA_ITERS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    got = got.cpu()
+    fin = torch.isfinite(want)
+    err = float(((got - want).abs() / (1 + want.abs()))[fin].max())
+    f64row = dict(n=10, m=10, candidates=int(fin.sum()),
+                  max_rel_err=err, cpu_s=cpu_s, card_s=card_s,
+                  fit_max_abs_diff=float((xs.cpu() - xs_cpu).abs().max()),
+                  nan_same=bool(torch.equal(torch.isnan(got),
+                                            torch.isnan(want))))
+    print(json.dumps(dict(phase="rc_f64_card_vs_cpu", **f64row)), flush=True)
+    check(f64row["nan_same"] and err <= RC_F64_TOL,
+          f"rc f64 card vs cpu: {f64row}")
+    out["f64"] = f64row
+
+    stamp("24")
+    # ---- 24. run_active_rc on the 10 x 10 data: all four keys, 3 records,
+    # then stopped at 2 with a checkpoint and resumed; then the CLI
+    keys = sorted(rc.RC_KEYS)
+    work = ROOT / "build" / "chip_smoke_rc"
+    work.mkdir(parents=True, exist_ok=True)
+    ck = work / "rc_ck.pkl"
+    ck.unlink(missing_ok=True)
+    loop_kw = dict(rating_values=small["_rating_vals"], seed=0, dtype=f64,
+                   device=device, lookahead_iters=RC_SHORT_LA_ITERS,
+                   max_iters=RC_LOOP_ITERS)
+    t0 = time.perf_counter()
+    full = run_active_rc(sprob, sreal, keys, steps=3, verbose=True, **loop_kw)
+    loop_s = time.perf_counter() - t0
+    run_active_rc(sprob, sreal, keys, steps=2, checkpoint_path=str(ck),
+                  **loop_kw)
+    resumed = run_active_rc(sprob, sreal, keys, steps=3,
+                            checkpoint_path=str(ck), verbose=True, **loop_kw)
+    pool = sprob_cpu.queryable.numpy()
+    loop = dict(s=loop_s, keys=keys)
+    for k in keys:
+        a, b = full[k], resumed[k]
+        loop[k] = dict(picks=[r[2] for r in a[1:]],
+                       resumed_picks=[r[2] for r in b[1:]],
+                       errs=[r[1] for r in a], resumed_errs=[r[1] for r in b])
+        # the replayed records are the interrupted run's own; the refit
+        # after the resume starts from the first fit's multipliers, not
+        # the interrupted run's last, so only a pick that follows from the
+        # seeds alone (random) must be the uninterrupted run's
+        check(len(b) == 3 and [r[0] for r in b] == [r[0] for r in a]
+              and [r[2] for r in b[:2]] == [r[2] for r in a[:2]]
+              and all(math.isclose(p[1], q[1], rel_tol=1e-9)
+                      for p, q in zip(a[:2], b[:2]))
+              and all(math.isfinite(r[1]) for r in a + b)
+              and all(pool[r[2]] for r in b[1:]),
+              f"rc loop resume {k}: {loop[k]}")
+    check([r[2] for r in resumed["random"]] == [r[2] for r in full["random"]],
+          f"rc loop resume: random picks {loop['random']}")
+    print(json.dumps(dict(phase="rc_loop_resume", **loop)), flush=True)
+    out["loop"] = loop
+
+    cli_ck = work / "rc_cli_ck.pkl"
+    cli_ck.unlink(missing_ok=True)
+    runs = []
+    for steps in (2, 3):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "amf_tpu_torch.run.active_rc",
+             "--load-data", str(RC_SMALL), "-s", str(steps), "--max-iters",
+             str(RC_LOOP_ITERS), "--lookahead-iters", str(RC_SHORT_LA_ITERS),
+             "--checkpoint",
+             str(cli_ck), "--save-results", str(work / "rc_cli.pkl"),
+             "entropy", "random"],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+        runs.append(dict(steps=steps, s=time.perf_counter() - t0,
+                         rc=proc.returncode,
+                         tail=proc.stdout.strip().splitlines()[-3:]))
+        check(proc.returncode == 0 and cli_ck.is_file(),
+              f"active_rc CLI: {runs[-1]} {proc.stderr[-2000:]}")
+    with open(work / "rc_cli.pkl", "rb") as f:
+        res = pickle.load(f)
+    cli = dict(runs=runs, records={k: len(res[f"rc_{k}"])
+                                   for k in ("entropy", "random")})
+    print(json.dumps(dict(phase="active_rc_cli", **cli)), flush=True)
+    check(cli["records"] == {"entropy": 3, "random": 3},
+          f"active_rc CLI resume: {cli}")
+    out["cli"] = cli
+    return out
+
+
+def cold_start_phases(device, real, known):
+    """Phases 25-26: cold-start BPMF (models/newitems, run/bpmf_newitems)
+    on the NUTS sampler, which runs no hand-written kernel: its density
+    and gradient are PyTorch's (autograd), one CUDA graph a potential."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch import types
+    from amf_tpu_torch.data import splits
+    from amf_tpu_torch.data.loaders import save_npz_schema
+    from amf_tpu_torch.mcmc import nuts
+    from amf_tpu_torch.models import bpmf_hmc, newitems, sample_stats
+
+    out = {}
+    f32 = torch.float32
+    is_new = np.zeros(M, dtype=bool)
+    is_new[M - CS_NEW:] = True
+    # the new columns' known cells: a row and column cover of the new
+    # submatrix (the reference's --pick-no-extras, splits.pick_ratings)
+    cs_known = known.copy()
+    cs_known[:, is_new] = splits.pick_ratings(
+        np.ones((N, CS_NEW), dtype=bool), None, np.random.default_rng(5))
+    prob = types.problem_from_dense(real, cs_known, dtype=f32, device=device)
+    cfg = bpmf_hmc.HMCConfig(latent_d=CS_D)
+
+    def chain_row(wall, samps, counters):
+        return dict(s=wall, draws=int(samps["lp__"].shape[0]),
+                    lockstep_leapfrogs=counters["lockstep_leapfrogs"],
+                    **tree_stats(samps["num_leaves"]),
+                    divergences=int(samps["diverging"].sum()),
+                    accept_mean=samps["accept_prob"].mean().item(),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    finite=bool(torch.isfinite(samps["V"]).all()
+                                and torch.isfinite(samps["lp__"]).all()))
+
+    stamp("25")
+    # ---- 25. phase 1 (the old columns' full chain), the phase-2 chain and
+    # an exp-variance lookahead tile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nuts.Counters.reset()
+    t0 = time.perf_counter()
+    U_mean, V_fixed, mr = newitems.initial_full_fit(
+        11, prob, is_new, cfg, num_samps=CS_FIT, dtype=f32)
+    torch.cuda.synchronize()
+    c = nuts.Counters.read()
+    phase1 = dict(n=N, m_old=M - CS_NEW, d=CS_D, draws=CS_FIT,
+                  warmup=CS_FIT // 2,
+                  dim=bpmf_hmc.ParamShapes(N, M - CS_NEW, CS_D).dim,
+                  s=time.perf_counter() - t0,
+                  leapfrogs_per_transition=c["lockstep_leapfrogs"]
+                  / max(c["transitions"], 1),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  finite=bool(torch.isfinite(U_mean).all()
+                              and torch.isfinite(V_fixed).all()))
+    print(json.dumps(dict(phase="cold_start_phase1", **phase1)), flush=True)
+    check(phase1["finite"], f"cold start phase 1: {phase1}")
+
+    prob_new = newitems.new_item_problem(prob, is_new)
+    st = newitems.init_state(prob_new, U_mean, V_fixed, cfg, mr, dtype=f32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nuts.Counters.reset()
+    t0 = time.perf_counter()
+    st, samps = newitems.samples(12, st, prob_new, cfg, CS_SAMPS)
+    torch.cuda.synchronize()
+    chain = dict(n=N, m_new=CS_NEW, d=CS_D, warmup=CS_SAMPS // 2,
+                 dim=newitems.NewItemsShapes(N, CS_NEW, CS_D).dim,
+                 **chain_row(time.perf_counter() - t0, samps,
+                             nuts.Counters.read()))
+    print(json.dumps(dict(phase="cold_start_chain", **chain)), flush=True)
+    check(chain["finite"], f"cold start chain: {chain}")
+    bounds = tuple(types.rating_bounds(VALS))
+    stats = sample_stats.prediction_stats(samps["U"], samps["V"], mr, True,
+                                          value_bounds=bounds)
+    cand = torch.nonzero(prob_new.queryable.flatten())[:CS_LA_CAND, 0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nuts.Counters.reset()
+    t0 = time.perf_counter()
+    scores = newitems.lookahead_scores(
+        13, st, prob_new, cfg, stats, VALS, num_samps=CS_SAMPS,
+        warmup=CS_SAMPS // 2, cand=cand, n_base_samples=CS_SAMPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = nuts.Counters.read()
+    tile = dict(candidates=CS_LA_CAND, lanes=CS_LA_CAND * len(VALS),
+                draws=CS_SAMPS, warmup=CS_SAMPS // 2, s=wall,
+                candidates_per_s=CS_LA_CAND / wall,
+                lockstep_leapfrogs=c["lockstep_leapfrogs"],
+                lane_mean_leapfrogs_per_transition=c["lane_leaves"]
+                / max(c["lane_transitions"], 1),
+                lockstep_leapfrogs_per_transition=c["lockstep_leapfrogs"]
+                / max(c["transitions"], 1),
+                syncs_per_transition=c["syncs"] / max(c["transitions"], 1),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                finite=bool(torch.isfinite(scores).all()))
+    print(json.dumps(dict(phase="cold_start_lookahead_tile", **tile)),
+          flush=True)
+    check(tile["finite"], f"cold start lookahead tile: {tile}")
+    out.update(phase1=phase1, chain=chain, tile=tile)
+
+    stamp("26")
+    # ---- 26. the bpmf_newitems CLI with --initial-fit-file and
+    # --checkpoint on a small problem, stopped at 2 records and resumed
+    rng = np.random.default_rng(6)
+    sreal, _, _ = nuts_problem("cpu", 12, 10, torch.float64, seed=6)
+    split = splits.make_new_items_split(sreal, 3, know_all_old=True, rng=rng)
+    work = ROOT / "build" / "chip_smoke_newitems"
+    work.mkdir(parents=True, exist_ok=True)
+    data = work / "newitems.npz"
+    save_npz_schema(str(data), dict(split, _rating_vals=np.asarray(VALS)))
+    fit_file, cli_ck = work / "fit.npz", work / "ck.pkl"
+    fit_file.unlink(missing_ok=True)
+    cli_ck.unlink(missing_ok=True)
+    runs = []
+    for steps in (2, 3):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "amf_tpu_torch.run.bpmf_newitems",
+             "--load-data", str(data), "-D", "3", "-s", str(steps), "-S",
+             "20", "--initial-fit-samps", "20", "--lookahead-samps", "10",
+             "--lookahead-warmup", "5", "--float32", "--initial-fit-file",
+             str(fit_file), "--checkpoint", str(cli_ck), "--save-results",
+             str(work / "newitems.pkl"), "exp-variance", "random"],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+        said = proc.stdout
+        runs.append(dict(steps=steps, s=time.perf_counter() - t0,
+                         rc=proc.returncode,
+                         loaded_fit="loaded initial fit" in said,
+                         resumed="resumed at step 1" in said))
+        check(proc.returncode == 0 and fit_file.is_file()
+              and cli_ck.is_file(),
+              f"bpmf_newitems CLI: {runs[-1]} {proc.stderr[-2000:]}")
+    with open(work / "newitems.pkl", "rb") as f:
+        res = pickle.load(f)
+    new_cols = set(np.nonzero(split["_is_new_item"])[0].tolist())
+    cli = dict(runs=runs, records={k: len(res[k])
+                                   for k in ("exp-variance", "random")},
+               picks_in_new_columns=all(
+                   r[2][1] in new_cols for k in ("exp-variance", "random")
+                   for r in res[k][1:]))
+    print(json.dumps(dict(phase="bpmf_newitems_cli", **cli)), flush=True)
+    check(runs[1]["loaded_fit"] and runs[1]["resumed"]
+          and cli["records"] == {"exp-variance": 3, "random": 3}
+          and cli["picks_in_new_columns"], f"bpmf_newitems CLI: {cli}")
+    out["cli"] = cli
+    return out
+
+
+def fit_type_phases(device, real, known):
+    """Phase 27: the PMF fit types at the MovieLens shape, d = 10, f32:
+    'batch', 'lbfgs' (ops/lbfgsb on the closed-form gradient) and
+    'mini-valid' (one CUDA graph an epoch), with one mini-valid epoch
+    timed graphed and eager."""
+    import torch
+    from amf_tpu_torch import types
+    from amf_tpu_torch.models import pmf
+    from amf_tpu_torch.ops import lbfgsb
+    from amf_tpu_torch.utils.rng import generator
+
+    stamp("27")
+    prob = types.problem_from_dense(real, known, dtype=torch.float32,
+                                    device=device)
+    cfg = pmf.PMFConfig(latent_d=FT_D, subtract_mean=True)
+    st0 = pmf.init_state(generator(21, device), N, M, cfg, prob,
+                         dtype=torch.float32, device=device)
+    mini = ("mini-valid", FT_BATCH, FT_VALID, FT_LR, 0.8, 1e-3,
+            FT_MAX_EPOCHS)
+    rows = {}
+    for name, fit_type in (("batch", ("batch",)), ("lbfgs", ("lbfgs",)),
+                           ("mini-valid", mini)):
+        torch.cuda.synchronize()
+        lbfgsb.Counters.reset()
+        pmf.MiniValidTimes.reset()
+        t0 = time.perf_counter()
+        st = pmf.do_fit(st0, prob, cfg, fit_type=fit_type,
+                        generator=generator(22, device))
+        torch.cuda.synchronize()
+        rows[name] = dict(s=time.perf_counter() - t0,
+                          epochs=len(pmf.MiniValidTimes.epochs),
+                          ll=float(pmf.log_likelihood(st, prob, cfg)),
+                          rmse_rated=float(pmf.rmse(st, prob, cfg,
+                                                    prob.R_obs,
+                                                    on=prob.rated)))
+        if name == "lbfgs":
+            rows[name].update(lbfgsb.Counters.read())
+    rows["init_ll"] = float(pmf.log_likelihood(st0, prob, cfg))
+
+    # one mini-valid epoch eager and as one CUDA graph, in turns: three
+    # epochs a fit (no early stop), the first of a graphed fit with its
+    # capture
+    for graph in (False, True, True, False):
+        pmf.MiniValidTimes.reset()
+        pmf.fit_minibatches_until_validation(
+            st0, prob, cfg, generator(23, device), FT_BATCH, FT_VALID,
+            lr=FT_LR, stop_thresh=-math.inf, max_epochs=3, graph=graph)
+        times = pmf.MiniValidTimes.epochs
+        key = "graphed" if graph else "eager"
+        rows.setdefault(f"epoch_{key}_s", []).extend(times[1:])
+        rows.setdefault(f"first_epoch_{key}_s", []).append(times[0])
+    # the graphed epochs against the eager ones in float64, three epochs
+    # from the same draws: the same operations, the scatter-adds' atomics
+    # in either order
+    prob64 = prob.to(dtype=torch.float64)
+    st64 = dataclasses.replace(st0, **{
+        f.name: getattr(st0, f.name).double()
+        for f in dataclasses.fields(st0)})
+    fits = [pmf.fit_minibatches_until_validation(
+        st64, prob64, cfg, generator(24, device), FT_BATCH, FT_VALID,
+        lr=FT_LR, stop_thresh=-math.inf, max_epochs=3, graph=graph)
+        for graph in (True, False)]
+    rows["graphed_vs_eager_f64"] = max(
+        float(((a - b).abs() / (1 + b.abs())).max())
+        for a, b in ((fits[0].U, fits[1].U), (fits[0].V, fits[1].V)))
+    n_batches = -(-N * M // FT_BATCH)
+    rows.update(n=N, m=M, d=FT_D, batch_size=FT_BATCH,
+                steps_per_epoch=n_batches)
+    print(json.dumps(dict(phase="fit_types", **rows)), flush=True)
+    check(all(math.isfinite(rows[k]["ll"]) for k in ("batch", "lbfgs",
+                                                       "mini-valid"))
+          and rows["lbfgs"]["ll"] > rows["init_ll"]
+          and rows["mini-valid"]["ll"] > rows["init_ll"]
+          and rows["graphed_vs_eager_f64"] <= FT_GRAPH_TOL,
+          f"fit types: {rows}")
+    return rows
 
 
 def main() -> int:
@@ -2393,6 +2853,10 @@ def main() -> int:
     vn_phases(device)
     # ---- 17-21. the NUTS BPMF path
     nuts_phases(device)
+    # ---- 22-24. RatingConcentration; 25-26. cold start; 27. fit types
+    rc_phases(device, real, known)
+    cold_start_phases(device, real, known)
+    fit_type_phases(device, real, known)
     stamp("end")
 
     def wide_row(row, launches, src):

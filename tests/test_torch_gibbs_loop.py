@@ -75,6 +75,24 @@ def test_run_active_gibbs_refuses_unported_options(data):
                                mesh=object())
 
 
+@pytest.mark.parametrize("fit_type", [("mini-valid", 10, 4), ("lbfgs", 50)])
+def test_run_active_gibbs_takes_every_fit_type(data, fit_type):
+    """The loop's initial fit runs the 'mini-valid' and 'lbfgs' fit types
+    on the CPU ('mini-valid' from a generator seeded by the step), and the
+    same seed gives the same records."""
+    real, known, vals = data
+    prob = ttypes.problem_from_dense(real, known, dtype=torch.float64,
+                                     device="cpu")
+    kw = dict(latent_d=2, rating_values=vals, num_samps=6, steps=2, seed=1,
+              fit_type=fit_type, device="cpu")
+    first = tloop.run_active_gibbs(prob, real, ["pred-variance"], **kw)
+    _check_records(first["pred-variance"], 2, prob.queryable.numpy(),
+                   real.shape)
+    again = tloop.run_active_gibbs(prob, real, ["pred-variance"], **kw)
+    assert ([r[:3] for r in again["pred-variance"]]
+            == [r[:3] for r in first["pred-variance"]])
+
+
 @pytest.fixture(scope="module")
 def data_file(tmp_path_factory, data):
     real, known, vals = data

@@ -29,6 +29,10 @@ SLICE = [
     "amf_tpu_torch.mcmc", "amf_tpu_torch.mcmc.nuts",
     "amf_tpu_torch.models.bpmf_hmc", "amf_tpu_torch.models.sample_stats",
     "amf_tpu_torch.active.stan_loop", "amf_tpu_torch.run.bpmf",
+    "amf_tpu_torch.data.splits", "amf_tpu_torch.data.extractors",
+    "amf_tpu_torch.ops.lbfgsb", "amf_tpu_torch.models.ratingconc",
+    "amf_tpu_torch.active.rc_loop", "amf_tpu_torch.run.active_rc",
+    "amf_tpu_torch.models.newitems", "amf_tpu_torch.run.bpmf_newitems",
 ]
 
 
@@ -132,6 +136,14 @@ def test_default_device_is_cuda_with_no_cpu_fallback():
         run_active_stan(None, None, ["random"])
     with pytest.raises(RuntimeError, match="CUDA"):
         bpmf.main(["--load-data", "never-read.npz"])
+    from amf_tpu_torch.active.rc_loop import run_active_rc
+    from amf_tpu_torch.run import active_rc, bpmf_newitems
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_active_rc(None, None, ["random"])
+    for cli in (active_rc, bpmf_newitems):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--load-data", "never-read.npz"])
 
 
 def test_constructors_default_to_the_card():

@@ -4,7 +4,9 @@ package's, in float64 from identical parameters.
 The deterministic pieces agree to rtol 1e-10 (the port uses the closed-form
 gradient where JAX differentiates the value, so the sums differ in order
 only). The fits agree on their accept/reject trajectory exactly and on the
-final factors to rtol 1e-8.
+final factors to rtol 1e-8; the 'lbfgs' fit type to 1e-8 (factors over 60
+iterations, the log posterior over 500) and the 'mini-valid' one, on JAX's
+replayed draws, to 1e-10.
 """
 
 import jax
@@ -158,5 +160,78 @@ def test_do_fit_batch_and_unported_fit_types(case):
         float(tpmf.rmse(got, tprob, tcfg, tprob.R_obs, on=tprob.rated)),
         float(jpmf.rmse(want, jprob, jcfg, jprob.R_obs, on=jprob.rated)),
         rtol=1e-8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpmf.do_fit(tst, tprob, tcfg, fit_type=("lbfgs",))
+    with pytest.raises(ValueError, match="unknown fit type"):
+        tpmf.do_fit(tst, tprob, tcfg, fit_type=("nope",))
+
+
+def test_lbfgs_fit_type_matches_jax(case):
+    """'lbfgs' through both dispatchers: the closed-form gradient on the
+    lane-batched L-BFGS against autodiff on JAX's. The MAP objective is flat
+    along rotations (U R, V R), where each iteration amplifies the two
+    sides' roundings, so U and V are held to 1e-8 over 60 iterations, and
+    at the default 500 the log posterior to 1e-10."""
+    jprob, jcfg, jst, tprob, tcfg, tst = case
+    fit_type = tpmf.parse_fit_type("lbfgs,60")
+    got = tpmf.do_fit(tst, tprob, tcfg, fit_type=fit_type)
+    want = jpmf.do_fit(jst, jprob, jcfg, fit_type=fit_type)
+    for name in ("U", "V"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-8, atol=1e-8)
+    got = tpmf.do_fit(tst, tprob, tcfg, fit_type=("lbfgs",))
+    want = jpmf.do_fit(jst, jprob, jcfg, fit_type=("lbfgs",))
+    np.testing.assert_allclose(
+        float(tpmf.log_likelihood(got, tprob, tcfg)),
+        float(jpmf.log_likelihood(want, jprob, jcfg)), rtol=1e-10)
+
+
+class _JaxMiniBatchNoise(tpmf.MiniBatchNoise):
+    """The draws of the JAX package's 'mini-valid' fit from ``key``: the
+    host validation subset from the first split, then one permutation an
+    epoch (amf_tpu/models/pmf.py:562-584)."""
+
+    def __init__(self, key):
+        self.kv, self.key = jax.random.split(key)
+
+    def valid_subset(self, rated_idx, size):
+        seed = np.asarray(jax.random.key_data(self.kv)).ravel()[-1]
+        return np.random.default_rng(seed).choice(rated_idx, size=size,
+                                                  replace=False)
+
+    def permutation(self, cap):
+        self.key, kshuf = jax.random.split(self.key)
+        return torch.as_tensor(np.array(jax.random.permutation(kshuf, cap)))
+
+
+@pytest.mark.parametrize("batch_size", [20, 7])
+def test_mini_valid_fit_type_matches_jax(case, batch_size):
+    """'mini-valid' with JAX's permutations and validation cells replayed:
+    the same epochs, every batch stepping (at 7 cells many batches hold no
+    training cell and take the prior's step), U and V to 1e-10."""
+    jprob, jcfg, jst, tprob, tcfg, tst = case
+    key = jax.random.PRNGKey(5)
+    fit_type = ("mini-valid", batch_size, 6, 0.05)
+    want = jpmf.do_fit(jst, jprob, jcfg, fit_type=fit_type, key=key)
+    got = tpmf.do_fit(tst, tprob, tcfg, fit_type=fit_type,
+                      generator=_JaxMiniBatchNoise(key))
+    for name in ("U", "V"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-10, atol=1e-10)
+    assert not np.allclose(got.U.numpy(), tst.U.numpy())
+
+
+def test_mini_valid_draws_from_a_generator(case):
+    """On the default noise source the fit depends on the generator's seed
+    alone, and leaves the caller's state untouched."""
+    _, _, _, tprob, tcfg, tst = case
+    U0 = tst.U.clone()
+
+    def run(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return tpmf.do_fit(tst, tprob, tcfg, fit_type=("mini-valid", 16, 5),
+                           generator=gen)
+
+    a, b, c = run(0), run(0), run(1)
+    assert torch.equal(a.U, b.U) and not torch.equal(a.U, c.U)
+    assert torch.equal(tst.U, U0)
