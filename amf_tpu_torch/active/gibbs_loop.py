@@ -75,6 +75,102 @@ def split_query_test(
     return query_on, test_on
 
 
+def gibbs_family(
+    problem: Problem,
+    real: np.ndarray,
+    latent_d: int = 5,
+    rating_values: Tuple[float, ...] = (),
+    subtract_mean: bool = True,
+    num_samps: int = 128,
+    lookahead_samps: int = 30,
+    lookahead_tile: int = 0,
+    seed: int = 0,
+    fit_type: tuple = ("batch",),
+    pcfg: Optional[pmf.PMFConfig] = None,
+    dtype=torch.float64,
+    device="cuda",
+    binary_acc: bool = False,
+) -> Tuple[Problem, Family, tuple]:
+    """The Gibbs family's callables and its initial state: (the problem on
+    ``device`` in ``dtype``, the :class:`Family`, (PMF state, statistics)
+    of the initial fit and chain under ``fold_in_name(seed, "init")``).
+    Shared by the host loop and the scan sweep (``active/scan_loop``)."""
+    device = resolve_device(device)
+    n, m = problem.shape
+    problem = problem.to(device=device, dtype=dtype)
+    pcfg = pcfg or pmf.PMFConfig(latent_d=latent_d, subtract_mean=subtract_mean)
+    gcfg = bpmf_gibbs.GibbsConfig(latent_d=latent_d, subtract_mean=subtract_mean)
+
+    vals = tuple(sorted(rating_values)) if rating_values else ()
+    bounds = tuple(rating_bounds(vals)) if vals else None
+    real_t = torch.as_tensor(np.asarray(real, dtype=np.float64),
+                             device=device).to(dtype)
+
+    def sample(pst, prob, k):
+        _, stats, _ = bpmf_gibbs.run_chain(
+            bpmf_gibbs.init_chain(pst), prob, gcfg, num_samps,
+            generator=generator(k, device), cutoffs=_CUTOFFS,
+            value_bounds=bounds)
+        return stats
+
+    def fit_and_sample(prob, k):
+        pst = pmf.init_state(generator(fold_in(k, 1), device), n, m, pcfg,
+                             prob, dtype=dtype, device=device)
+        # 'mini-valid' draws its permutations and validation cells from
+        # the step's seed, as the JAX package's draw from its key
+        pst = pmf.do_fit(pst, prob, pcfg, fit_type=fit_type,
+                         generator=generator(k, device))
+        return pst, sample(pst, prob, fold_in(k, 2))
+
+    def refit_and_sample(pst, prob, k):
+        pst = pmf.refresh_mean_rating(pst, prob)
+        pst, _ = pmf.fit(pst, prob, pcfg)
+        return pst, sample(pst, prob, k)
+
+    def lookahead(k, pst, prob, stats):
+        # vals = () takes the continuous path (normal fit + trapezoid over
+        # ppf points, bayes_pmf.py:446-453 semantics)
+        out = torch.full((n * m,), float("nan"), dtype=dtype, device=device)
+        cand = torch.nonzero(prob.queryable.flatten())[:, 0]
+        if len(cand):  # a scan sweep scores after the pool is exhausted
+            out[cand] = bpmf_gibbs.exp_variance_scores(
+                k, pst, prob, pcfg, gcfg, stats, vals,
+                num_samps=lookahead_samps, n_base_samples=num_samps,
+                cand=cand, candidate_tile=lookahead_tile)
+        return out.reshape(n, m)
+
+    def evals_for(kname: str, pst, stats, prob, k):
+        spec = KEYS[kname]
+        if spec.kind == "random":
+            ev = torch.rand((n, m), generator=generator(k, device),
+                            dtype=dtype, device=device)
+        elif spec.kind == "pred-variance":
+            ev = stats.var
+        elif spec.kind == "pred":
+            ev = stats.mean
+        elif spec.kind == "prob-ge":
+            ev = stats.prob_ge[_CUTOFFS.index(spec.cutoff)]
+        elif spec.kind == "exp-variance":
+            ev = lookahead(k, pst, prob, stats)
+        else:
+            raise ValueError(spec.kind)
+        return torch.where(prob.queryable, ev, float("nan"))
+
+    def err(st, prob):
+        if binary_acc:
+            return metrics.binary_misclassification(st[1].mean, real_t, prob.test)
+        return metrics.rmse_on(st[1].mean, real_t, prob.test)
+
+    family = Family(
+        nice_name=lambda kname: KEYS[kname].nice_name,
+        score=lambda kname, st, prob, k: (
+            evals_for(kname, st[0], st[1], prob, k), KEYS[kname].choose_max),
+        refit=lambda st, prob, k: refit_and_sample(st[0], prob, k),
+        err=err,
+    )
+    return problem, family, fit_and_sample(problem, fold_in_name(seed, "init"))
+
+
 def run_active_gibbs(
     problem: Problem,
     real: np.ndarray,
@@ -124,90 +220,20 @@ def run_active_gibbs(
             raise ValueError(f"unknown Gibbs criterion {k!r}")
     if mesh is not None:
         raise _not_ported("candidate sharding over a device mesh")
-    device = resolve_device(device)
-    n, m = problem.shape
-    problem = problem.to(device=device, dtype=dtype)
-    pcfg = pcfg or pmf.PMFConfig(latent_d=latent_d, subtract_mean=subtract_mean)
-    gcfg = bpmf_gibbs.GibbsConfig(latent_d=latent_d, subtract_mean=subtract_mean)
-
-    vals = tuple(sorted(rating_values)) if rating_values else ()
-    bounds = tuple(rating_bounds(vals)) if vals else None
-    real_t = torch.as_tensor(np.asarray(real, dtype=np.float64),
-                             device=device).to(dtype)
-
-    def sample(pst, prob, k):
-        _, stats, _ = bpmf_gibbs.run_chain(
-            bpmf_gibbs.init_chain(pst), prob, gcfg, num_samps,
-            generator=generator(k, device), cutoffs=_CUTOFFS,
-            value_bounds=bounds)
-        return stats
-
-    def fit_and_sample(prob, k):
-        pst = pmf.init_state(generator(fold_in(k, 1), device), n, m, pcfg,
-                             prob, dtype=dtype, device=device)
-        # 'mini-valid' draws its permutations and validation cells from
-        # the step's seed, as the JAX package's draw from its key
-        pst = pmf.do_fit(pst, prob, pcfg, fit_type=fit_type,
-                         generator=generator(k, device))
-        return pst, sample(pst, prob, fold_in(k, 2))
-
-    def refit_and_sample(pst, prob, k):
-        pst = pmf.refresh_mean_rating(pst, prob)
-        pst, _ = pmf.fit(pst, prob, pcfg)
-        return pst, sample(pst, prob, k)
-
-    def lookahead(k, pst, prob, stats):
-        # vals = () takes the continuous path (normal fit + trapezoid over
-        # ppf points, bayes_pmf.py:446-453 semantics)
-        cand = torch.nonzero(prob.queryable.flatten())[:, 0]
-        scores = bpmf_gibbs.exp_variance_scores(
-            k, pst, prob, pcfg, gcfg, stats, vals,
-            num_samps=lookahead_samps, n_base_samples=num_samps, cand=cand,
-            candidate_tile=lookahead_tile)
-        out = torch.full((n * m,), float("nan"), dtype=dtype, device=device)
-        out[cand] = scores
-        return out.reshape(n, m)
-
-    pst0, stats0 = fit_and_sample(problem, fold_in_name(seed, "init"))
-
+    problem, family, state0 = gibbs_family(
+        problem, real, latent_d=latent_d, rating_values=rating_values,
+        subtract_mean=subtract_mean, num_samps=num_samps,
+        lookahead_samps=lookahead_samps, lookahead_tile=lookahead_tile,
+        seed=seed, fit_type=fit_type, pcfg=pcfg, dtype=dtype, device=device,
+        binary_acc=binary_acc)
     results: Dict[str, object] = {
         "_real": np.asarray(real),
         "_ratings": ratings_array(problem),
-        "_rating_vals": vals or None,
+        "_rating_vals": tuple(sorted(rating_values)) or None,
     }
-
-    def evals_for(kname: str, pst, stats, prob, k):
-        spec = KEYS[kname]
-        if spec.kind == "random":
-            ev = torch.rand((n, m), generator=generator(k, device),
-                            dtype=dtype, device=device)
-        elif spec.kind == "pred-variance":
-            ev = stats.var
-        elif spec.kind == "pred":
-            ev = stats.mean
-        elif spec.kind == "prob-ge":
-            ev = stats.prob_ge[_CUTOFFS.index(spec.cutoff)]
-        elif spec.kind == "exp-variance":
-            ev = lookahead(k, pst, prob, stats)
-        else:
-            raise ValueError(spec.kind)
-        return torch.where(prob.queryable, ev, float("nan"))
-
-    def err(st, prob):
-        if binary_acc:
-            return metrics.binary_misclassification(st[1].mean, real_t, prob.test)
-        return metrics.rmse_on(st[1].mean, real_t, prob.test)
-
-    family = Family(
-        nice_name=lambda kname: KEYS[kname].nice_name,
-        score=lambda kname, st, prob, k: (
-            evals_for(kname, st[0], st[1], prob, k), KEYS[kname].choose_max),
-        refit=lambda st, prob, k: refit_and_sample(st[0], prob, k),
-        err=err,
-    )
     ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
                                         every=checkpoint_every)
     results.update(
-        drive_active(problem, real, key_names, family, (pst0, stats0), seed,
+        drive_active(problem, real, key_names, family, state0, seed,
                      steps=steps, ckpt=ckpt, verbose=verbose, replay=replay))
     return results

@@ -41,7 +41,7 @@ def _cast(state, dtype, device):
         for f in dataclasses.fields(state)})
 
 
-def run_active_pmf(
+def active_pmf_family(
     problem: Problem,
     real: np.ndarray,
     key_names: Sequence[str],
@@ -50,7 +50,6 @@ def run_active_pmf(
     discrete_exp=False,
     refit_lookahead: bool = False,
     fit_sigmas: bool = False,
-    steps: Optional[int] = None,
     seed: int = 0,
     model: str = "vn",  # 'vn' (ActivePMF) | 'mn' (MNActivePMF)
     pcfg: Optional[pmf.PMFConfig] = None,
@@ -59,28 +58,13 @@ def run_active_pmf(
     cov_param: str = "psd-project",  # vn only: 'chol' = eigh-free descent
     dtype=torch.float64,
     device=None,
-    verbose: bool = False,
     initial_state=None,
-    checkpoint_path: Optional[str] = None,
-    checkpoint_every: int = 20,
-) -> Dict[str, object]:
-    """Run the multi-criterion comparison (reference: compare(),
-    active_pmf.py:1013-1092). Returns the reference results schema.
-
-    Lookahead criteria score the queryable cells ``lookahead_tile``
-    candidates a tile (0: the whole pool in one tile), each tile one batch
-    of lanes dispatched from the host. ``initial_state`` =
-    (pmf state, approximation or None) is reused instead of the initial fit
-    (reference: --load-model, active_pmf.py:1131, :1214-1215); the results
-    keep the initial state under ``_initial_state``.
-
-    device: the card by default; without one that raises
-    (``utils.platform.resolve_device``). The CPU runs only when named.
-
-    checkpoint_path: a partial-results pickle written every
-    ``checkpoint_every`` steps and at each criterion's end; a run given an
-    existing one resumes from its recorded picks (``active/driver.py``).
-    """
+) -> Tuple[Problem, Family, tuple]:
+    """The variational family's callables and its initial state: (the
+    problem on ``device`` in ``dtype``, the :class:`Family`, (PMF state,
+    approximation or None)), the approximation fitted when a criterion of
+    ``key_names`` needs it. Shared by the host loop and the scan sweep
+    (``active/scan_loop``); the arguments are :func:`run_active_pmf`'s."""
     registry = (criteria_mod.KEY_FUNCS if model == "vn"
                 else criteria_mod.MN_KEY_FUNCS)
     for k in key_names:
@@ -139,12 +123,6 @@ def run_active_pmf(
 
     real_t = torch.as_tensor(np.asarray(real, dtype=np.float64),
                              device=device).to(dtype)
-    results: Dict[str, object] = {
-        "_real": np.asarray(real),
-        "_ratings": ratings_array(problem),
-        "_rating_vals": tuple(rating_values) if rating_values else None,
-        "_initial_state": (pst, ast),
-    }
 
     def refit(st, prob, k):
         pst, ast = st
@@ -164,10 +142,11 @@ def run_active_pmf(
                 crit, pmf.predicted_matrix(pst, pcfg), amv,
                 generator(k, device))
             return torch.where(prob.queryable, ev, torch.nan), crit.maximize
-        cand = torch.nonzero(prob.queryable.flatten())[:, 0]
         out = torch.full((n * m,), torch.nan, dtype=dtype, device=device)
-        out[cand] = lookahead_mod.lookahead_scores(
-            crit, pst, ast, prob, k, pcfg, adapter, lcfg, cand=cand)
+        cand = torch.nonzero(prob.queryable.flatten())[:, 0]
+        if len(cand):  # a scan sweep scores after the pool is exhausted
+            out[cand] = lookahead_mod.lookahead_scores(
+                crit, pst, ast, prob, k, pcfg, adapter, lcfg, cand=cand)
         return out.reshape(n, m), crit.maximize
 
     family = Family(
@@ -177,8 +156,64 @@ def run_active_pmf(
         err=lambda st, prob: metrics.rmse_on(
             pmf.predicted_matrix(st[0], pcfg), real_t, prob.test),
     )
+    return problem, family, (pst, ast)
+
+
+def run_active_pmf(
+    problem: Problem,
+    real: np.ndarray,
+    key_names: Sequence[str],
+    latent_d: int = 5,
+    rating_values: Tuple[float, ...] = (),
+    discrete_exp=False,
+    refit_lookahead: bool = False,
+    fit_sigmas: bool = False,
+    steps: Optional[int] = None,
+    seed: int = 0,
+    model: str = "vn",  # 'vn' (ActivePMF) | 'mn' (MNActivePMF)
+    pcfg: Optional[pmf.PMFConfig] = None,
+    lookahead_budget: int = 300,
+    lookahead_tile: int = 0,
+    cov_param: str = "psd-project",  # vn only: 'chol' = eigh-free descent
+    dtype=torch.float64,
+    device=None,
+    verbose: bool = False,
+    initial_state=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 20,
+) -> Dict[str, object]:
+    """Run the multi-criterion comparison (reference: compare(),
+    active_pmf.py:1013-1092). Returns the reference results schema.
+
+    Lookahead criteria score the queryable cells ``lookahead_tile``
+    candidates a tile (0: the whole pool in one tile), each tile one batch
+    of lanes dispatched from the host. ``initial_state`` =
+    (pmf state, approximation or None) is reused instead of the initial fit
+    (reference: --load-model, active_pmf.py:1131, :1214-1215); the results
+    keep the initial state under ``_initial_state``.
+
+    device: the card by default; without one that raises
+    (``utils.platform.resolve_device``). The CPU runs only when named.
+
+    checkpoint_path: a partial-results pickle written every
+    ``checkpoint_every`` steps and at each criterion's end; a run given an
+    existing one resumes from its recorded picks (``active/driver.py``).
+    """
+    problem, family, state0 = active_pmf_family(
+        problem, real, key_names, latent_d=latent_d,
+        rating_values=rating_values, discrete_exp=discrete_exp,
+        refit_lookahead=refit_lookahead, fit_sigmas=fit_sigmas, seed=seed,
+        model=model, pcfg=pcfg, lookahead_budget=lookahead_budget,
+        lookahead_tile=lookahead_tile, cov_param=cov_param, dtype=dtype,
+        device=device, initial_state=initial_state)
+    results: Dict[str, object] = {
+        "_real": np.asarray(real),
+        "_ratings": ratings_array(problem),
+        "_rating_vals": tuple(rating_values) if rating_values else None,
+        "_initial_state": state0,
+    }
     ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
                                         every=checkpoint_every)
-    results.update(drive_active(problem, real, key_names, family, (pst, ast),
+    results.update(drive_active(problem, real, key_names, family, state0,
                                 seed, steps=steps, ckpt=ckpt, verbose=verbose))
     return results

@@ -21,6 +21,7 @@ import torch
 
 from amf_tpu_torch.models.bpmf_gibbs import ChainState, PredStats
 from amf_tpu_torch.models.bpmf_hmc import BPMFState
+from amf_tpu_torch.models.mmmf import MaxNormState, MMMFState
 from amf_tpu_torch.models.mnormal import MNState
 from amf_tpu_torch.models.newitems import NewItemsState
 from amf_tpu_torch.models.pmf import PMFState
@@ -99,6 +100,16 @@ def vn_state(src, device=None, dtype=None) -> VNState:
 def mn_state(src, device=None, dtype=None) -> MNState:
     """``MNState`` from mean, cov_useritems, cov_latents."""
     return _build(MNState, src, device, dtype)
+
+
+def mmmf_state(src, device=None, dtype=None) -> MMMFState:
+    """``MMMFState`` (the ADMM variables) from X, Z, W."""
+    return _build(MMMFState, src, device, dtype)
+
+
+def maxnorm_state(src, device=None, dtype=None) -> MaxNormState:
+    """``MaxNormState`` (the max-norm factors) from U, V."""
+    return _build(MaxNormState, src, device, dtype)
 
 
 def to_numpy(state) -> Dict[str, Optional[np.ndarray]]:

@@ -6,9 +6,12 @@ Same flags as the JAX package's CLI and the reference entry points
 main()`` (:1011-1128): criterion keys, data schema and results pickle, plus
 ``--device`` (``cuda`` by default; ``cpu`` only when named). ``--model mn``
 selects the matrix-normal approximation. ``--checkpoint`` writes a
-partial-results pickle and resumes from one. ``--scan``, ``--scan-evals``
-and ``--shard-candidates`` are not ported yet and exit with a message
-naming the ROADMAP item.
+partial-results pickle and resumes from one. ``--scan`` runs each
+criterion's sweep with its step logic on the device
+(``active/scan_loop.run_active_scan``) and writes the host path's layout;
+it refuses ``--fit-sigmas``, as the JAX package's does.
+``--shard-candidates`` is not ported yet and exits with a message naming
+the ROADMAP item.
 
     python -m amf_tpu_torch.run.active_pmf --device cuda -N 24 -M 24 -D 2 \\
         --mask .2 total-variance
@@ -80,9 +83,11 @@ def build_parser():
     running.add_argument("--steps", "-s", type=int, default=None)
     running.add_argument("--seed", type=int, default=0)
     running.add_argument("--scan", action="store_true", default=False,
-                         help="not ported yet")
+                         help="run each sweep with its step logic on the "
+                              "device (active/scan_loop.py)")
     running.add_argument("--scan-evals", action="store_true", default=False,
-                         help="not ported yet (goes with --scan)")
+                         help="with --scan: also record per-step criterion "
+                              "maps in the results (steps*n*m memory)")
     running.add_argument("--shard-candidates", type=int, default=0,
                          metavar="N_DEVICES", help="not ported yet")
     running.add_argument("--lookahead-tile", type=int, default=0,
@@ -140,10 +145,11 @@ def main(argv=None):
             sys.stderr.write(f"Invalid key name {k}; options are "
                              f"{', '.join(sorted(registry))}.\n")
             sys.exit(1)
-    for flag, given in (("--scan", args.scan or args.scan_evals),
-                        ("--shard-candidates", args.shard_candidates)):
-        if given:
-            sys.exit(_NOT_PORTED.format(flag=flag))
+    if args.shard_candidates:
+        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
+    if args.scan and args.fit_sigmas:
+        sys.stderr.write("--scan does not support --fit-sigmas\n")
+        sys.exit(1)
 
     from amf_tpu_torch import convert, types
     from amf_tpu_torch.active import loop
@@ -197,14 +203,12 @@ def main(argv=None):
         initial_state = _load_initial_state(args.load_model, args.model)
         print(f"reusing initial model from {args.load_model}")
 
-    results = loop.run_active_pmf(
-        problem, real, key_names,
+    loop_kw = dict(
         latent_d=args.latent_d,
         rating_values=vals,
         discrete_exp=args.discrete_integration,
         refit_lookahead=args.refit_lookahead,
         fit_sigmas=args.fit_sigmas,
-        steps=args.steps,
         seed=args.seed,
         model=args.model,
         lookahead_budget=args.lookahead_budget,
@@ -212,10 +216,25 @@ def main(argv=None):
         cov_param=args.cov_param,
         dtype=dtype,
         device=device,
-        verbose=args.verbose,
         initial_state=initial_state,
-        checkpoint_path=args.checkpoint,
     )
+    if args.scan:
+        from amf_tpu_torch.active import scan_loop
+
+        problem, family, state0 = loop.active_pmf_family(
+            problem, real, key_names, **loop_kw)
+        results = {"_real": np.asarray(real),
+                   "_ratings": types.ratings_array(problem),
+                   "_rating_vals": tuple(vals) if vals else None,
+                   "_initial_state": state0}
+        results.update(scan_loop.sweep_records(
+            problem, real, key_names, args.steps, family, state0, args.seed,
+            lambda kname: registry[kname].maximize,
+            record_evals=args.scan_evals, verbose=args.verbose))
+    else:
+        results = loop.run_active_pmf(
+            problem, real, key_names, steps=args.steps, verbose=args.verbose,
+            checkpoint_path=args.checkpoint, **loop_kw)
 
     if args.save_results:
         print(f"saving results in '{args.save_results}'")

@@ -4,8 +4,10 @@
 Same flags as the JAX package's CLI and the reference's
 ``python-pmf/bayes_pmf.py main()`` (:828-938), same criterion keys, data
 schema and results pickle, plus ``--device``. ``--checkpoint`` writes a
-partial-results pickle and resumes from one. ``--scan`` and
-``--shard-candidates`` are not ported yet and exit with a message naming
+partial-results pickle and resumes from one. ``--scan`` runs each
+criterion's sweep with its step logic on the device
+(``active/scan_loop.run_gibbs_scan``) and writes the host path's layout;
+``--shard-candidates`` is not ported yet and exits with a message naming
 the ROADMAP item.
 
     python -m amf_tpu_torch.run.bayes_pmf --load-data data.npz exp-variance
@@ -53,9 +55,12 @@ def main(argv=None):
     parser.add_argument("--shard-candidates", type=int, default=0,
                         metavar="N_DEVICES", help="not ported yet")
     parser.add_argument("--scan-evals", action="store_true", default=False,
-                        help="not ported yet (goes with --scan)")
+                        help="with --scan: also record per-step criterion "
+                             "maps in the results (steps*n*m memory)")
     parser.add_argument("--scan", action="store_true", default=False,
-                        help="not ported yet")
+                        help="run each sweep with its step logic on the "
+                             "device (active/scan_loop.py; use --scan-evals "
+                             "to also record per-step criterion maps)")
     parser.add_argument("--test-set", default="all")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--float32", action="store_true")
@@ -82,15 +87,14 @@ def main(argv=None):
                 f"Invalid key name {k}; options are {', '.join(sorted(KEYS))}.\n"
             )
             sys.exit(1)
-    for flag, given in (("--scan", args.scan or args.scan_evals),
-                        ("--shard-candidates", args.shard_candidates)):
-        if given:
-            sys.exit(_NOT_PORTED.format(flag=flag))
+    if args.shard_candidates:
+        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
 
     import torch
 
     from amf_tpu_torch import types
-    from amf_tpu_torch.active.gibbs_loop import run_active_gibbs, split_query_test
+    from amf_tpu_torch.active.gibbs_loop import (gibbs_family, run_active_gibbs,
+                                                 split_query_test)
     from amf_tpu_torch.data.loaders import load_npz_schema
     from amf_tpu_torch.models.pmf import parse_fit_type
     from amf_tpu_torch.utils.platform import setup as platform_setup
@@ -129,8 +133,7 @@ def main(argv=None):
     # reference's DrugBank behavior: binary data switches the recorded
     # metric to misclassification (stan-bpmf/bpmf.py:53-54,932-942)
     binary_acc = set(vals) in ({-1.0, 1.0}, {0.0, 1.0})
-    results = run_active_gibbs(
-        problem, real, key_names,
+    loop_kw = dict(
         latent_d=args.latent_d,
         rating_values=vals,
         binary_acc=binary_acc,
@@ -138,14 +141,26 @@ def main(argv=None):
         num_samps=args.samps,
         lookahead_samps=args.lookahead_samps,
         lookahead_tile=args.lookahead_tile,
-        steps=args.steps,
-        seed=args.seed,
         fit_type=parse_fit_type(args.fit),
         dtype=dtype,
         device=device,
-        verbose=args.verbose,
-        checkpoint_path=args.checkpoint,
     )
+    if args.scan:
+        from amf_tpu_torch.active import scan_loop
+
+        problem, family, state0 = gibbs_family(problem, real, seed=args.seed,
+                                               **loop_kw)
+        results = {"_real": np.asarray(real),
+                   "_ratings": types.ratings_array(problem),
+                   "_rating_vals": tuple(sorted(vals)) or None}
+        results.update(scan_loop.sweep_records(
+            problem, real, key_names, args.steps, family, state0, args.seed,
+            lambda kname: KEYS[kname].choose_max,
+            record_evals=args.scan_evals, verbose=args.verbose))
+    else:
+        results = run_active_gibbs(
+            problem, real, key_names, steps=args.steps, seed=args.seed,
+            verbose=args.verbose, checkpoint_path=args.checkpoint, **loop_kw)
 
     if args.save_results:
         print(f"\nsaving results in '{args.save_results}'")

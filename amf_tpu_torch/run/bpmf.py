@@ -7,9 +7,12 @@ Same flags as the JAX package's CLI and ``stan-bpmf/bpmf.py MainProgram``
 ``--device`` (``cuda`` by default; ``cpu`` only when named). Binary data
 (values {-1, 1} or {0, 1}) switches the metric to binary misclassification
 like the reference (:53-54, :932-942). ``--checkpoint`` writes a
-partial-results pickle and resumes from one. ``--scan``, ``--scan-evals``
-and ``--shard-candidates`` are not ported yet and exit with a message
-naming the ROADMAP item.
+partial-results pickle and resumes from one. ``--scan`` runs each
+criterion's sweep with its step logic on the device
+(``active/scan_loop.run_stan_scan``) and writes the host path's layout;
+it refuses ``--warm-adapt``, as the JAX package's does.
+``--shard-candidates`` is not ported yet and exits with a message naming
+the ROADMAP item.
 
     python -m amf_tpu_torch.run.bpmf --load-data data.npz -D 5 exp-variance
 """
@@ -51,9 +54,11 @@ def main(argv=None):
     parser.add_argument("--shard-candidates", type=int, default=0,
                         metavar="N_DEVICES", help="not ported yet")
     parser.add_argument("--scan", action="store_true", default=False,
-                        help="not ported yet")
+                        help="run each sweep with its step logic on the "
+                             "device (active/scan_loop.py)")
     parser.add_argument("--scan-evals", action="store_true", default=False,
-                        help="not ported yet (goes with --scan)")
+                        help="with --scan: also record per-step criterion "
+                             "maps in the results (steps*n*m memory)")
     parser.add_argument("--warm-adapt", action="store_true", default=False,
                         help="carry NUTS adaptation (eps + inverse mass) "
                              "between active steps: refits after the first "
@@ -106,10 +111,11 @@ def main(argv=None):
                 f"Invalid key name {k}; options are {', '.join(sorted(KEYS))}.\n"
             )
             sys.exit(1)
-    for flag, given in (("--scan", args.scan or args.scan_evals),
-                        ("--shard-candidates", args.shard_candidates)):
-        if given:
-            sys.exit(_NOT_PORTED.format(flag=flag))
+    if args.shard_candidates:
+        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
+    if args.scan and args.warm_adapt:
+        parser.error("--warm-adapt needs the host loop, as in the JAX "
+                     "package; drop --scan")
     if args.model_filename not in MODEL_BY_FILE:
         sys.stderr.write(
             f"Unknown --model-filename {args.model_filename}; options are "
@@ -120,7 +126,7 @@ def main(argv=None):
 
     from amf_tpu_torch import types
     from amf_tpu_torch.active.gibbs_loop import split_query_test
-    from amf_tpu_torch.active.stan_loop import run_active_stan
+    from amf_tpu_torch.active.stan_loop import run_active_stan, stan_family
     from amf_tpu_torch.data.loaders import load_npz_schema
     from amf_tpu_torch.mcmc.nuts import SAMPLER_ERA
     from amf_tpu_torch.models import bpmf_hmc
@@ -162,8 +168,7 @@ def main(argv=None):
         problem, queryable=torch.as_tensor(query_on, device=device))
     binary_acc = set(vals) in ({-1.0, 1.0}, {0.0, 1.0})
 
-    results = run_active_stan(
-        problem, real, key_names,
+    loop_kw = dict(
         latent_d=args.latent_d,
         rating_values=vals,
         subtract_mean=args.subtract_mean,
@@ -176,10 +181,8 @@ def main(argv=None):
         lookahead_samps=args.lookahead_samps,
         lookahead_warmup=args.lookahead_warmup,
         lookahead_tile=args.lookahead_tile,
-        steps=args.steps,
         seed=args.seed,
         model_init_map=args.model_init,
-        checkpoint_path=args.checkpoint,
         binary_acc=binary_acc,
         warm_adapt=args.warm_adapt,
         warm_warmup=args.warm_warmup,
@@ -187,6 +190,21 @@ def main(argv=None):
         device=device,
         verbose=args.verbose,
     )
+    if args.scan:
+        from amf_tpu_torch.active import scan_loop
+
+        problem, family, state0 = stan_family(problem, real, **loop_kw)
+        results = {"_real": np.asarray(real),
+                   "_ratings": types.ratings_array(problem),
+                   "_rating_vals": tuple(sorted(vals)) or None}
+        results.update(scan_loop.sweep_records(
+            problem, real, key_names, args.steps, family, state0, args.seed,
+            lambda kname: KEYS[kname].choose_max,
+            record_evals=args.scan_evals, verbose=args.verbose))
+    else:
+        results = run_active_stan(
+            problem, real, key_names, steps=args.steps,
+            checkpoint_path=args.checkpoint, **loop_kw)
 
     if args.save_results:
         print(f"\nsaving results in '{args.save_results}'")

@@ -29,6 +29,11 @@ hand-written kernel of them against its plain PyTorch version on the card:
     20, and its ``bpmf_newitems`` CLI; the PMF ``lbfgs`` and ``mini-valid``
     fit types; these run PyTorch's dense tensor code and no hand-written
     kernel.
+  * MMMF (the ADMM nuclear-norm solver, max-norm and ordinal variants) at
+    the reference's DrugBank shape (94 x 425), its loop and ``active_mmmf``
+    CLI: cuSOLVER's eigh and cuBLAS, no hand-written kernel; and the scan
+    sweeps of ``active/scan_loop`` (vn, Gibbs, stan) beside their host
+    loops, the Gibbs exp-variance sweep through the Cholesky kernel.
 
     python3 chip_smoke.py
 
@@ -131,8 +136,26 @@ Phases (each raises on failure):
      and mini-valid (their log posteriors), one mini-valid epoch eager and
      as one CUDA graph, in turns, and three graphed epochs against three
      eager ones in float64, <= 1e-8.
-The launch counts are reset before phases 3, 7, 8, 10, 11 and each run of
-12, and read after phases 4, 7, 8, 10, 11 and each run of 12, before the
+ 28. MMMF's ADMM solve at the DrugBank shape (94 x 425, f64, C = 1, to
+     1e-6 within 2,000 iterations) and at 472 x 413 in f32 (to 1e-5), each
+     against the same solve on the CPU by the objective, with its
+     iterations, ms an iteration, eigh's share and host reads an
+     iteration; a solve at the MovieLens shape capped at 100 iterations;
+     the max-norm and the ordinal solvers once each at the DrugBank shape;
+ 29. run_active_mmmf at the DrugBank shape, 5 selectors x 3 records, f64,
+     its re-solves capped at 500 ADMM iterations; a run stopped at 2
+     records with a checkpoint and resumed to 3 against it; the
+     ``active_mmmf`` CLI once;
+ 30. the scan sweeps: a device-only stub family under sync debug mode
+     "error" (the sweep's own step reads nothing); beside each its host
+     loop from the same state and seeds, with records, seconds and host
+     reads a step: vn pred-variance on phase 15's problem (and phase 15's
+     records), the Gibbs sweeps at the MovieLens shape (pred-variance, and
+     exp-variance on a 64-cell pool through the Cholesky kernel, counted,
+     never its plain version), the stan sweep on 12 x 10.
+The launch counts are reset before phases 3, 7, 8, 10, 11, each run of
+12 and each Gibbs exp-variance run of 30, and read after phases 4, 7, 8,
+10, 11, each run of 12 and each such run of 30, before the
 comparisons with the plain versions; phases 7, 8 and 10 also count the
 index builds (one a refit).
 The line before the last is the kernels' JSON; the last line is
@@ -151,6 +174,7 @@ import pickle
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -290,6 +314,45 @@ CS_NEW, CS_D, CS_SAMPS, CS_FIT, CS_LA_CAND = 168, 20, 100, 60, 32
 FT_D, FT_BATCH, FT_VALID, FT_LR, FT_MAX_EPOCHS = 10, 1000, 500, 0.2, 20
 # the graphed mini-valid epochs against the eager ones, float64, scaled
 FT_GRAPH_TOL = 1e-8
+# MMMF (phases 28-29): the DrugBank MMMF configuration
+# (experiments/drugbank-94x425-5to1: 94 x 425 +-1 labels, C = 1, float64,
+# ADMM to 1e-6 within 2000 iterations, 500 labels known and 1,500 held
+# out) on synthetic labels, 5 negatives to 1 positive; the newmovies-20d
+# solve's shape (amf_tpu/models/mmmf.py:53-56: 472 x 413, float32, the
+# CLI's f32 tolerance 1e-5) with 10 % of its labels known; the MovieLens
+# shape's ratings >= 4 as labels, a solve capped at 100 iterations, as a
+# figure. The max-norm solver runs its default 4,000 subgradient steps;
+# the ordinal solver 500 of its 4,000 (every step an SVT), so that the
+# phases keep to their time
+MM_N, MM_M, MM_KNOWN, MM_TEST, MM_NEG_PER_POS = 94, 425, 500, 1500, 5
+MM_F32_N, MM_F32_M, MM_F32_KNOWN = 472, 413, 0.1
+MM_WIDE_ITERS, MM_ORD_ITERS = 100, 500
+# card against CPU on a converged solve: the same program to the same
+# tolerance, eigh in cuSOLVER against LAPACK (last bits, and so residual
+# balancing, may differ): the objectives to 1e-6 relative in float64 and
+# 1e-4 in float32
+MM_OBJ_RTOL = {"float64": 1e-6, "float32": 1e-4}
+# the loop: 5 selectors x 3 records, float64; the checkpointed run and its
+# resume on one of them; the CLI, 2 records of one. Their re-solves run at
+# most 500 ADMM iterations (the configuration's 2,000: at the synthetic
+# DrugBank labels every solve runs to the cap, 4.4 s on an H100 80GB HBM3
+# at 700 W, where the loop, its resume and the CLI took 96 s), so that the
+# phases keep to their time
+MM_LOOP_KEYS = ["max-margin", "max-margin-pos", "min-margin",
+                "min-margin-pos", "random"]
+MM_RESUME_KEYS = ["random"]
+MM_LOOP_ADMM_ITERS = 500
+# the scan sweeps (phase 30): phase 15's vn loop (pred-variance), 1 query;
+# the Gibbs sweeps at the MovieLens shape: pred-variance 3 queries over the
+# whole pool, exp-variance 2 queries over a 64-cell pool in tiles of 32
+# candidates; the stan sweep on 12 x 10 (pred-variance, 2 queries, phase
+# 21's 10 draws after 6); each beside the host loop from the same state
+# and seeds
+SCAN_GIBBS_STEPS, SCAN_EV_STEPS, SCAN_STAN_STEPS = 3, 2, 2
+# the sweep against the host loop on the card: the same operations in the
+# same order; errors to 1e-5 relative in float32 (scatter-adds' atomics
+# may sum in either order), picks equal
+SCAN_ERR_RTOL = 1e-5
 
 
 START = time.perf_counter()
@@ -1966,6 +2029,376 @@ def cold_start_phases(device, real, known):
     return out
 
 
+@contextlib.contextmanager
+def host_reads():
+    """Counts the host reads (the CUDA calls that wait for the device) in
+    the block, by PyTorch's sync debug mode; yields a one-item list that
+    holds the count after the block."""
+    import torch
+
+    box = [0]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            box[0] = sum("synchroniz" in str(w.message).lower()
+                         for w in caught)
+
+
+def mmmf_labels(n, m, known, test, seed, neg_per_pos=MM_NEG_PER_POS):
+    """Synthetic +-1 labels of rank 5 at n x m, ``neg_per_pos`` negatives
+    to a positive; ``known`` labels known and ``test`` held out (counts,
+    or a fraction known and the rest held out)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    score = rng.normal(size=(n, 5)) @ rng.normal(size=(m, 5)).T
+    y = np.where(score > np.quantile(score, neg_per_pos / (neg_per_pos + 1)),
+                 1.0, -1.0)
+    cells = rng.permutation(n * m)
+    if isinstance(known, float):
+        known = int(known * n * m)
+        test = n * m - known
+    kn = np.zeros(n * m, bool)
+    kn[cells[:known]] = True
+    te = np.zeros(n * m, bool)
+    te[cells[known:known + test]] = True
+    return y, kn.reshape(n, m), te.reshape(n, m)
+
+
+def mmmf_phases(device, real, known):
+    """Phases 28-29: MMMF (models/mmmf, active/mmmf_loop, run/active_mmmf),
+    which runs no hand-written kernel: its ADMM is cuSOLVER's eigh,
+    cuBLAS GEMMs and elementwise work, as the JAX package's is XLA's."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch import types
+    from amf_tpu_torch.active.mmmf_loop import binarize, run_active_mmmf
+    from amf_tpu_torch.data.loaders import save_npz_schema
+    from amf_tpu_torch.models import mmmf
+    from amf_tpu_torch.run import active_mmmf
+
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+
+    def solve_row(y_obs, cfg, cpu_too=True):
+        """A solve on the card, its iterations, ms an iteration and eigh's
+        share of it; the same solve on the CPU, and the objectives."""
+        Y = torch.as_tensor(y_obs, device=device)
+        mmmf.solve(Y, cfg._replace(max_iters=2))  # warm the libraries
+        with host_reads() as reads:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, iters = mmmf.solve(Y, cfg)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        n, m = Y.shape
+        gram = (st.X.mT @ st.X) if m <= n else (st.X @ st.X.mT)
+        torch.linalg.eigh(gram)
+        t_eigh = min(timed_ms(lambda: torch.linalg.eigh(gram))[1]
+                     for _ in range(5))
+        row = dict(n=n, m=m, dtype=str(Y.dtype).split(".")[1],
+                   known=int((Y != 0).sum()), tol=cfg.tol,
+                   max_iters=cfg.max_iters, iters=iters, s=s,
+                   ms_per_iter=1e3 * s / max(iters, 1), eigh_ms=t_eigh,
+                   eigh_share=t_eigh / (1e3 * s / max(iters, 1)),
+                   host_reads_per_iter=reads[0] / max(iters, 1),
+                   objective=float(mmmf.objective(st.X, Y, cfg.C)),
+                   finite=bool(torch.isfinite(st.X).all()))
+        if cpu_too:
+            Yc = Y.cpu()
+            t0 = time.perf_counter()
+            cst, citers = mmmf.solve(Yc, cfg)
+            row.update(cpu_s=time.perf_counter() - t0, cpu_iters=citers,
+                       cpu_objective=float(mmmf.objective(cst.X, Yc, cfg.C)))
+            row["objective_rel_diff"] = (abs(row["objective"]
+                                             - row["cpu_objective"])
+                                         / abs(row["cpu_objective"]))
+            row["x_max_diff_scaled"] = float(
+                (st.X.cpu() - cst.X).abs().max() / cst.X.abs().max())
+        return st, row
+
+    stamp("28")
+    # ---- 28. ADMM solves: the DrugBank shape in f64, the newmovies-20d
+    # shape in f32 (each against the CPU), the MovieLens shape capped
+    y, kn, te = mmmf_labels(MM_N, MM_M, MM_KNOWN, MM_TEST, seed=31)
+    solves = {}
+    st_db, solves["drugbank_f64"] = solve_row(
+        np.where(kn, y, 0.0), mmmf.MMMFConfig(C=1.0, tol=1e-6))
+    y32, kn32, _ = mmmf_labels(MM_F32_N, MM_F32_M, MM_F32_KNOWN, 0, seed=32)
+    _, solves["newmovies_f32"] = solve_row(
+        np.where(kn32, y32, 0.0).astype(np.float32),
+        mmmf.MMMFConfig(C=1.0, tol=1e-5))
+    y_ml = np.where(known, binarize(real, 4.0), 0.0).astype(np.float32)
+    _, solves["movielens_f32_capped"] = solve_row(
+        y_ml, mmmf.MMMFConfig(C=1.0, tol=1e-5, max_iters=MM_WIDE_ITERS),
+        cpu_too=False)
+    for name, row in solves.items():
+        print(json.dumps(dict(phase="mmmf_solve", case=name, **row)),
+              flush=True)
+        check(row["finite"] and 0 < row["iters"] <= row["max_iters"]
+              and math.isfinite(row["objective"]), f"mmmf solve {name}: {row}")
+        if "cpu_objective" in row:
+            check(row["objective_rel_diff"] <= MM_OBJ_RTOL[row["dtype"]],
+                  f"mmmf {name} card vs CPU: {row}")
+    Ydb = torch.as_tensor(np.where(kn, y, 0.0), device=device)
+    t0 = time.perf_counter()
+    mst, mobj = mmmf.solve_maxnorm(Ydb, mmmf.MaxNormConfig(C=1.0),
+                                   generator=torch.Generator(
+                                       device=device).manual_seed(7))
+    torch.cuda.synchronize()
+    maxnorm = dict(s=time.perf_counter() - t0, iters=4000,
+                   objective=float(mobj),
+                   finite=bool(torch.isfinite(mst.X).all()))
+    # ordinal labels 1..5: quintiles of a rank-5 score
+    rng = np.random.default_rng(33)
+    score = rng.normal(size=(MM_N, 5)) @ rng.normal(size=(MM_M, 5)).T
+    y_ord = np.where(kn, 1 + np.searchsorted(
+        np.quantile(score, [0.2, 0.4, 0.6, 0.8]), score), 0)
+    t0 = time.perf_counter()
+    xy, oX, th = mmmf.solve_ordinal(
+        torch.as_tensor(y_ord, dtype=f64, device=device), R=5,
+        cfg=mmmf.OrdinalConfig(max_iters=MM_ORD_ITERS))
+    torch.cuda.synchronize()
+    ordinal = dict(s=time.perf_counter() - t0, iters=MM_ORD_ITERS,
+                   theta=th.tolist(), finite=bool(torch.isfinite(oX).all()),
+                   labels=sorted(set(xy.unique().tolist())))
+    print(json.dumps(dict(phase="mmmf_maxnorm_ordinal", maxnorm=maxnorm,
+                          ordinal=ordinal)), flush=True)
+    check(maxnorm["finite"] and math.isfinite(maxnorm["objective"])
+          and ordinal["finite"] and all(math.isfinite(t)
+                                        for t in ordinal["theta"]),
+          f"max-norm / ordinal: {maxnorm} {ordinal}")
+    out["solves"] = dict(solves, maxnorm=maxnorm, ordinal=ordinal)
+
+    stamp("29")
+    # ---- 29. the active loop at the DrugBank shape: 5 selectors x 3
+    # records, f64; a run stopped at 2 records with a checkpoint and
+    # resumed to 3; the CLI
+    prob = types.problem_from_dense(y, kn, test=te, dtype=f64, device=device)
+    work = ROOT / "build" / "chip_smoke_mmmf"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    loop_cfg = mmmf.MMMFConfig(C=1.0, max_iters=MM_LOOP_ADMM_ITERS)
+    full = run_active_mmmf(prob, y, MM_LOOP_KEYS, steps=3, cfg=loop_cfg,
+                           device=device, verbose=True)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    pool = prob.queryable.cpu().numpy()
+    loop = dict(s=loop_s, s_per_step_upper=loop_s / (2 * len(MM_LOOP_KEYS)))
+    for k in MM_LOOP_KEYS:
+        recs = full[k]
+        picks = [r[2] for r in recs[1:]]
+        loop[k] = dict(picks=picks, misclass=[r[1] for r in recs])
+        check(len(recs) == 3 and len(set(picks)) == 2
+              and all(pool[p] for p in picks)
+              and all(0.0 <= r[1] <= 1.0 for r in recs),
+              f"mmmf loop {k}: {loop[k]}")
+    ck = work / "mmmf_ck.pkl"
+    ck.unlink(missing_ok=True)
+    run_active_mmmf(prob, y, MM_RESUME_KEYS, steps=2, cfg=loop_cfg,
+                    device=device, checkpoint_path=str(ck))
+    t0 = time.perf_counter()
+    resumed = run_active_mmmf(prob, y, MM_RESUME_KEYS, steps=3, cfg=loop_cfg,
+                              device=device, checkpoint_path=str(ck),
+                              verbose=True)
+    loop["resume_s"] = time.perf_counter() - t0
+    for k in MM_RESUME_KEYS:
+        a, b = full[k], resumed[k]
+        loop[k].update(resumed_picks=[r[2] for r in b[1:]],
+                       resumed_misclass=[r[1] for r in b])
+        # the replayed records are the stopped run's, which drew the
+        # uninterrupted run's seeds from the same state
+        check(len(b) == 3 and [r[0] for r in b] == [r[0] for r in a]
+              and [r[2] for r in b[:2]] == [r[2] for r in a[:2]]
+              and all(math.isclose(x[1], z[1], rel_tol=1e-9)
+                      for x, z in zip(a[:2], b[:2]))
+              and pool[b[2][2]], f"mmmf loop resume {k}: {loop[k]}")
+    check(resumed["random"][2][2] == full["random"][2][2],
+          f"mmmf resume: random picks {loop['random']}")
+    print(json.dumps(dict(phase="mmmf_loop", **loop)), flush=True)
+    out["loop"] = loop
+
+    data = work / "mmmf_cli.npz"
+    save_npz_schema(str(data), {"_real": y, "_known": kn, "_test_on": te})
+    res_path = work / "mmmf_cli.pkl"
+    t0 = time.perf_counter()
+    active_mmmf.main(["--load-data", str(data), "-s", "2", "--admm-iters",
+                      str(MM_LOOP_ADMM_ITERS), "--save-results",
+                      str(res_path), "random"])
+    cli_s = time.perf_counter() - t0
+    with open(res_path, "rb") as f:
+        res = pickle.load(f)
+    cli = dict(s=cli_s, keys=sorted(res), kind=res["_kind"],
+               era=res["_solver_era"])
+    print(json.dumps(dict(phase="active_mmmf_cli", **cli)), flush=True)
+    check(set(res) == {"_real", "_rating_vals", "_kind", "_args",
+                       "_solver_era", "mmmf_random"}
+          and res["_args"]["device"] == "cuda"
+          and len(res["mmmf_random"]) == 2,
+          f"active_mmmf CLI: {cli}")
+    out["cli"] = cli
+    return out
+
+
+def scan_phases(device, prob, real, known, vn_loop):
+    """Phase 30: the scan sweeps (active/scan_loop) beside the host loops
+    they share their families with: the sweep's own step reads nothing
+    (a device-only stub family under sync debug mode "error"); each
+    family's sweep and host loop from the same state and seeds give the
+    same records, with their seconds and host reads a step; the Gibbs
+    exp-variance sweep launches the Cholesky kernel and never its plain
+    version."""
+    import numpy as np
+    import torch
+    from amf_tpu_torch import types
+    from amf_tpu_torch.active import scan_loop
+    from amf_tpu_torch.active.gibbs_loop import run_active_gibbs
+    from amf_tpu_torch.active.loop import run_active_pmf
+    from amf_tpu_torch.active.stan_loop import run_active_stan
+    from amf_tpu_torch.ops import chol_kernel as ck
+
+    stamp("30")
+    out = {}
+    f32 = torch.float32
+
+    # the sweep's own step: a stub family that never leaves the device
+    sm = torch.linspace(0.0, 1.0, N * M, device=device).view(N, M)
+    real_t = torch.as_tensor(real, dtype=f32, device=device)
+    state0 = torch.zeros((), dtype=f32, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trace, st = scan_loop.sweep_steps(
+            prob, real_t, state0,
+            score=lambda st, p, k: sm + st,
+            refit=lambda st, p, k: st + 1.0,
+            err=lambda st, p: torch.where(p.rated, p.R_obs, 0.0).sum() + st,
+            steps=5, seed=0, maximize=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    picks = trace[:20].view(5, 4)[:, 2].long().tolist()
+    check(float(st) == 5.0 and picks == sorted(picks, reverse=True)
+          and len(set(picks)) == 5, f"stub sweep: picks {picks}")
+    out["stub_sweep"] = dict(steps=5, host_reads_in_steps=0, picks=picks)
+
+    def side_by_side(name, host_fn, scan_fn, queries, rtol):
+        """The host loop's and the sweep's records, seconds a step and host
+        reads a step, from the same state and seeds."""
+        rows = {}
+        for path, fn in (("host", host_fn), ("scan", scan_fn)):
+            with host_reads() as reads:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recs = fn()
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+            rows[path] = dict(records=recs, s=s, reads=reads[0])
+        h, c = rows["host"]["records"], rows["scan"]["records"]
+        row = dict(queries=queries,
+                   picks=[r[2] for r in c[1:]],
+                   errs=[r[1] for r in c],
+                   err_max_rel_diff=max(abs(a[1] - b[1]) / abs(a[1])
+                                        for a, b in zip(h, c)),
+                   **{f"{p}_s": rows[p]["s"] for p in rows},
+                   **{f"{p}_s_per_step": rows[p]["s"] / queries
+                      for p in rows},
+                   **{f"{p}_host_reads_per_step": rows[p]["reads"] / queries
+                      for p in rows})
+        check(len(h) == len(c) == queries + 1
+              and [r[2] for r in h] == [r[2] for r in c]
+              and [r[0] for r in h] == [r[0] for r in c]
+              and row["err_max_rel_diff"] <= rtol
+              and all(math.isfinite(r[1]) for r in c),
+              f"{name}: host {[r[:3] for r in h]} scan {[r[:3] for r in c]}")
+        print(json.dumps(dict(phase="scan_sweep", case=name, **row)),
+              flush=True)
+        return row
+
+    # vn: phase 15's loop, pred-variance, from the same state and seeds
+    lreal, lprob, _, _ = vn_problem(device, f32)
+    vn_kw = dict(latent_d=VN_D, refit_lookahead=True, seed=0, model="vn",
+                 lookahead_budget=VN_REFIT_STEPS, lookahead_tile=VN_TILE,
+                 cov_param="chol", dtype=f32, device=device)
+    out["vn"] = side_by_side(
+        "vn pred-variance",
+        lambda: run_active_pmf(lprob, lreal, ["pred-variance"], steps=2,
+                               **vn_kw)["pred-variance"],
+        lambda: scan_loop.result_to_records(lprob, scan_loop.run_active_scan(
+            lprob, lreal, "pred-variance", 1, **vn_kw)[0]),
+        1, SCAN_ERR_RTOL)
+    check(out["vn"]["picks"] == vn_loop["picks"]
+          and all(math.isclose(a, b, rel_tol=SCAN_ERR_RTOL)
+                  for a, b in zip(out["vn"]["errs"], vn_loop["rmse"])),
+          f"vn sweep against phase 15: {out['vn']} {vn_loop}")
+
+    # Gibbs at the MovieLens shape: pred-variance over the whole pool, and
+    # exp-variance over a 64-cell pool through the Cholesky kernel
+    g_kw = dict(latent_d=D, rating_values=VALS, num_samps=BASE_SAMPS,
+                lookahead_samps=LA_SAMPS, lookahead_tile=TILE, seed=0,
+                dtype=f32, device=device)
+    out["gibbs_pred_variance"] = side_by_side(
+        "gibbs pred-variance",
+        lambda: run_active_gibbs(prob, real, ["pred-variance"],
+                                 steps=SCAN_GIBBS_STEPS + 1,
+                                 **g_kw)["pred-variance"],
+        lambda: scan_loop.result_to_records(prob, scan_loop.run_gibbs_scan(
+            prob, real, "pred-variance", SCAN_GIBBS_STEPS, **g_kw)[0]),
+        SCAN_GIBBS_STEPS, SCAN_ERR_RTOL)
+    q = np.flatnonzero(prob.queryable.cpu().numpy().ravel())
+    pool = np.zeros(N * M, bool)
+    pool[np.random.default_rng(30).choice(q, size=POOL, replace=False)] = True
+    prob_pool = types.problem_from_dense(real, known,
+                                         queryable=pool.reshape(N, M),
+                                         dtype=f32, device=device)
+    launches = {}
+
+    def counted(fn, path):
+        def run():
+            ck.chol_gram_solve_sample_cuda.launches = 0
+            ck.chol_solve_sample_batch_minor.launches = 0
+            ck.chol_solve_sample_reference.calls = 0
+            res = fn()
+            launches[path] = dict(
+                gram_fed=ck.chol_gram_solve_sample_cuda.launches,
+                s_given=ck.chol_solve_sample_batch_minor.launches,
+                plain=ck.chol_solve_sample_reference.calls)
+            return res
+        return run
+
+    out["gibbs_exp_variance"] = side_by_side(
+        "gibbs exp-variance",
+        counted(lambda: run_active_gibbs(prob_pool, real, ["exp-variance"],
+                                         steps=SCAN_EV_STEPS + 1,
+                                         **g_kw)["exp-variance"], "host"),
+        counted(lambda: scan_loop.result_to_records(
+            prob_pool, scan_loop.run_gibbs_scan(
+                prob_pool, real, "exp-variance", SCAN_EV_STEPS,
+                **g_kw)[0]), "scan"),
+        SCAN_EV_STEPS, SCAN_ERR_RTOL)
+    out["gibbs_exp_variance"]["chol_kernel"] = launches
+    check(launches["scan"]["gram_fed"] > 0
+          and launches["scan"]["plain"] == launches["scan"]["s_given"] == 0,
+          f"the exp-variance sweep's Cholesky launches: {launches}")
+
+    # the stan sweep on 12 x 10
+    sreal, _, sprob = nuts_problem(device, 12, 10, f32, seed=4, mask=0.3)
+    s_kw = dict(latent_d=STAN_D, rating_values=VALS, num_samps=10, warmup=6,
+                seed=0, dtype=f32, device=device)
+    out["stan_pred_variance"] = side_by_side(
+        "stan pred-variance",
+        lambda: run_active_stan(sprob, sreal, ["pred-variance"],
+                                steps=SCAN_STAN_STEPS + 1,
+                                **s_kw)["pred-variance"],
+        lambda: scan_loop.result_to_records(sprob, scan_loop.run_stan_scan(
+            sprob, sreal, "pred-variance", SCAN_STAN_STEPS, **s_kw)[0]),
+        SCAN_STAN_STEPS, SCAN_ERR_RTOL)
+    return out
+
+
 def fit_type_phases(device, real, known):
     """Phase 27: the PMF fit types at the MovieLens shape, d = 10, f32:
     'batch', 'lbfgs' (ops/lbfgsb on the closed-form gradient) and
@@ -2850,13 +3283,17 @@ def main() -> int:
     # ---- 12. the main paths at d = 48
     wide = wide_main_paths(device, prob, real, knowable, rng, work)
     # ---- 13-16. the variational (ActivePMF) path
-    vn_phases(device)
+    vn = vn_phases(device)
     # ---- 17-21. the NUTS BPMF path
     nuts_phases(device)
     # ---- 22-24. RatingConcentration; 25-26. cold start; 27. fit types
     rc_phases(device, real, known)
     cold_start_phases(device, real, known)
     fit_type_phases(device, real, known)
+    # ---- 28-29. MMMF; 30. the scan sweeps
+    mmmf_phases(device, real, known)
+    scan = scan_phases(device, prob, real, known,
+                       vn["loops"]["vn"]["pred-variance"])
     stamp("end")
 
     def wide_row(row, launches, src):
@@ -2915,6 +3352,10 @@ def main() -> int:
         "source": "amf_tpu_torch/csrc/chol_solve_sample.cu",
         "replaces": "amf_tpu/ops/chol_kernel.py:41",
         "launches": main_launches,
+        # the Gibbs exp-variance scan sweep's launches (phase 30), counted
+        # from 0 just before it
+        "scan_sweep_launches":
+            scan["gibbs_exp_variance"]["chol_kernel"]["scan"]["gram_fed"],
         "max_abs_err": max(r["max_abs_err"] for r in gram),
         **{k: gram_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "gram_to_x_ms", "gram_to_x_assembled_ms")},

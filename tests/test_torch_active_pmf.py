@@ -141,7 +141,11 @@ def test_cli_runs_on_the_cpu_saves_and_reloads_its_model(tmp_path, capsys):
         r[:3] for r in first["pred-variance"]]
 
 
-@pytest.mark.parametrize("flag", [["--scan"], ["--scan-evals"],
+# --scan and --scan-evals are ported; neither lifts the refusal of
+# --shard-candidates
+@pytest.mark.parametrize("flag", [["--scan-evals", "--shard-candidates", "2"],
+                                  ["--scan", "--scan-evals",
+                                   "--shard-candidates", "2"],
                                   ["--shard-candidates", "2"],
                                   ["--scan", "--shard-candidates", "2"]])
 def test_cli_unported_flags_exit_with_a_reason(flag):

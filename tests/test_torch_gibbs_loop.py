@@ -118,8 +118,11 @@ def test_bayes_pmf_cli(data_file, tmp_path):
     assert res["_rating_vals"] == tuple(float(v) for v in range(6))
 
 
-@pytest.mark.parametrize("flag", [["--scan"], ["--shard-candidates", "2"],
-                                  ["--scan-evals"]])
+# --scan and --scan-evals are ported; neither lifts the refusal of
+# --shard-candidates
+@pytest.mark.parametrize("flag", [["--scan", "--shard-candidates", "2"],
+                                  ["--shard-candidates", "2"],
+                                  ["--scan-evals", "--shard-candidates", "2"]])
 def test_bayes_pmf_cli_unported_flags_exit(data_file, flag):
     from amf_tpu_torch.run import bayes_pmf
 

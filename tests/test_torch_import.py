@@ -33,6 +33,9 @@ SLICE = [
     "amf_tpu_torch.ops.lbfgsb", "amf_tpu_torch.models.ratingconc",
     "amf_tpu_torch.active.rc_loop", "amf_tpu_torch.run.active_rc",
     "amf_tpu_torch.models.newitems", "amf_tpu_torch.run.bpmf_newitems",
+    "amf_tpu_torch.models.mmmf", "amf_tpu_torch.models.sdpa_io",
+    "amf_tpu_torch.active.mmmf_loop", "amf_tpu_torch.run.active_mmmf",
+    "amf_tpu_torch.active.scan_loop",
 ]
 
 
@@ -144,6 +147,36 @@ def test_default_device_is_cuda_with_no_cpu_fallback():
     for cli in (active_rc, bpmf_newitems):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--load-data", "never-read.npz"])
+
+
+def test_mmmf_and_scan_entry_points_default_to_the_card():
+    """The MMMF solver state, loop and CLI and the scan sweeps run on the
+    card unless the CPU is named."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default would run on it")
+    import numpy as np
+
+    from amf_tpu_torch import convert
+    from amf_tpu_torch.active import scan_loop
+    from amf_tpu_torch.active.mmmf_loop import run_active_mmmf
+    from amf_tpu_torch.models import mmmf
+    from amf_tpu_torch.run import active_mmmf
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mmmf.init_state(2, 3)
+    assert mmmf.init_state(2, 3, device="cpu").X.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.mmmf_state(dict(X=np.zeros((2, 3)), Z=np.zeros((2, 3)),
+                                W=np.zeros((2, 3))))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_active_mmmf(None, None, ["random"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        active_mmmf.main(["--load-data", "never-read.npz"])
+    for sweep in (scan_loop.run_gibbs_scan, scan_loop.run_stan_scan):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sweep(None, None, "random", 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scan_loop.run_active_scan(None, None, "random", 1)
 
 
 def test_constructors_default_to_the_card():

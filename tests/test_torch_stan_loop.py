@@ -217,7 +217,10 @@ def test_bpmf_cli_on_the_cpu_with_checkpoint(data_file, tmp_path, capsys):
     assert [r[:3] for r in again["random"]] == [r[:3] for r in first["random"]]
 
 
-@pytest.mark.parametrize("flag", [["--scan"], ["--scan-evals"],
+# --scan and --scan-evals are ported; neither lifts the refusal of
+# --shard-candidates
+@pytest.mark.parametrize("flag", [["--scan", "--shard-candidates", "2"],
+                                  ["--scan-evals", "--shard-candidates", "2"],
                                   ["--shard-candidates", "2"]])
 def test_bpmf_cli_unported_flags_exit(data_file, flag):
     from amf_tpu_torch.run import bpmf
