@@ -39,8 +39,12 @@ negative pivot).
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
+import json
+import os
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -339,3 +343,25 @@ def chol_gram_solve_sample(
         raise ValueError(f"chol_gram_solve_sample runs on cpu or cuda, not "
                          f"{Gt.device}")
     return fn(Gt, mrt, z, alpha, mu, beta, center, cells, other)
+
+
+def launch_counts() -> dict:
+    """This process's counts: launches of the two entry points and calls of
+    the plain version."""
+    return {"gram_fed": chol_gram_solve_sample_cuda.launches,
+            "s_given": chol_solve_sample_batch_minor.launches,
+            "plain": chol_solve_sample_reference.calls}
+
+
+def _append_counts(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"argv": sys.argv, **launch_counts()}) + "\n")
+
+
+# A program that runs the port's CLIs as processes of their own (the
+# experiment runner does) reads their counts from the file this variable
+# names: every process that imports this module appends one JSON line of
+# ``launch_counts()`` and its argv to it when it exits.
+COUNTS_FILE_ENV = "AMF_TORCH_CHOL_COUNTS"
+if os.environ.get(COUNTS_FILE_ENV):
+    atexit.register(_append_counts, os.environ[COUNTS_FILE_ENV])

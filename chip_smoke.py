@@ -34,6 +34,11 @@ hand-written kernel of them against its plain PyTorch version on the card:
     CLI: cuSOLVER's eigh and cuBLAS, no hand-written kernel; and the scan
     sweeps of ``active/scan_loop`` (vn, Gibbs, stan) beside their host
     loops, the Gibbs exp-variance sweep through the Cholesky kernel.
+  * the result tools and the experiment runner: ``get_samples`` at the
+    MovieLens shape and ``get_criteria`` through the Cholesky kernel, the
+    ``experiment`` runner's five arms of ``10x10_discrete2_d2`` (its bayes
+    arm through the Cholesky kernel), the parity checks on what it wrote
+    and on copies of committed experiment directories, and the text CLIs.
 
     python3 chip_smoke.py
 
@@ -86,7 +91,7 @@ Phases (each raises on failure):
      128 lanes, B2, B3 and B5 at 8);
  13. the vn lookahead, bench.py's vn workload (total-variance, 50 + 50
      refit steps, 8 nodes, tiles of 64 candidates, f32): every candidate
-     with cov_param="chol", one 16-candidate tile with "psd-project" and
+     with cov_param="chol", one 8-candidate tile with "psd-project" and
      its host-side split (eigh, slogdet, autograd, the lane refit), a
      4-candidate chol tile's device split; every score finite;
  14. float64 tiles of total-variance and pred-entropy-bound-approx on the
@@ -101,11 +106,11 @@ Phases (each raises on failure):
  18. one NUTS base chain at the MovieLens shape (d = 5, 100 draws after
      50 warmup), the same readings;
  19. NUTS lookahead tiles at the DrugBank shape from phase 17's chain:
-     exp-variance over 32 candidates x 5 values (160 lanes, 100 draws
+     exp-variance over 16 candidates x 5 values (80 lanes, 100 draws
      after 50 warmup) and exp-entropy-est over 4 (30 after 15): every
      score finite,
      tile time, lockstep against the lanes' mean leapfrogs, syncs; and the
-     profiler's split of one 160-lane transition (potential, RNG, syncs);
+     profiler's split of one 80-lane transition (potential, RNG, syncs);
  20. float64 card against CPU (12 x 10, d = 3, 6 lanes) on the same
      recorded noise: one transition, and each draw of a 20 + 10 chain from
      the card's draw before it, <= 1e-8 scaled; the chains' trees and
@@ -116,7 +121,7 @@ Phases (each raises on failure):
  22. the maxent fit at the MovieLens shape, float64 (17 features, 89,250
      multipliers): iterations, final projected-gradient norm, search
      trials, wall time;
- 23. a maxent lookahead tile there: 16 candidates x 5 values (80 lanes) of
+ 23. a maxent lookahead tile there: 8 candidates x 5 values (40 lanes) of
      60 warm-started iterations, every score finite, tile time, peak
      memory, the lanes' mean iterations against the lockstep count; and
      float64 card against CPU on the 10 x 10 experiment data
@@ -127,8 +132,8 @@ Phases (each raises on failure):
      CLI stopped and resumed;
  25. cold start at the MovieLens shape, the last 168 columns new, d = 20,
      f32: phase 1 (60 draws after 30 on the old columns), the phase-2
-     chain (100 after 50) and an exp-variance tile of 32 candidates x 5
-     values (160 lanes, 100 after 50): wall times, tree depth,
+     chain (100 after 50) and an exp-variance tile of 16 candidates x 5
+     values (80 lanes, 100 after 50): wall times, tree depth,
      divergences, peak memory, every score finite;
  26. the ``bpmf_newitems`` CLI with ``--initial-fit-file`` and
      ``--checkpoint`` on a 12 x 10 problem, stopped and resumed;
@@ -153,6 +158,29 @@ Phases (each raises on failure):
      records), the Gibbs sweeps at the MovieLens shape (pred-variance, and
      exp-variance on a 64-cell pool through the Cholesky kernel, counted,
      never its plain version), the stan sweep on 12 x 10.
+ 31. the ``get_samples`` CLI at the MovieLens shape (phase 3's ratings,
+     d = 10, f32, 128 draws): the draws' shapes, every draw finite, the
+     Gram-fed kernel launched once a row draw, seconds a draw;
+ 32. the ``get_criteria`` CLI at its defaults (10 x 10, d = 2, 2 steps,
+     f64): the Gram-fed kernel launched, the pairwise Kendall-tau lines,
+     every map finite on exactly the cells still queryable;
+ 33. ``python -m amf_tpu_torch.run.experiment 10x10_discrete2_d2 --steps 2
+     --device cuda`` with its five arms (apmf, stan, bayes, mmmf, rc) and
+     the draws of the stan and bayes arms cut by the runner's ``--set``,
+     each arm a process of its own that reports its Cholesky counts at its
+     exit (the bayes arm launches the Gram-fed kernel); then, in this process,
+     ``check_experiment_dir`` on what it wrote (the structural and
+     initial-state rows must pass; the learning bands are printed, not
+     asserted: two steps cannot show learning) and the text paths of
+     ``plot_results --aucs``, ``plot_aucs`` and ``compare_firsts``;
+ 34. ``check_experiment_dir`` on copies of the committed
+     ``experiments/10x10_discrete2_d2`` (99 rows, hard_ok true) and
+     ``experiments/drugbank-94x425`` (25 rows, hard_ok false).
+Phases 31, 33 and 34 each run inside ``utils/profiling.device_trace`` (a
+Chrome trace of the card under build/chip_smoke_results/; phase 32 outside
+it, whose millions of launches take the profiler minutes to write), each
+phase with the Cholesky counts set to 0 just before and read just after;
+none imports matplotlib or JAX.
 The launch counts are reset before phases 3, 7, 8, 10, 11, each run of
 12 and each Gibbs exp-variance run of 30, and read after phases 4, 7, 8,
 10, 11, each run of 12 and each such run of 30, before the
@@ -253,9 +281,10 @@ WIDE_REFIT_LANES = 8
 VN_N, VN_D, VN_MASK = 24, 2, 0.2
 VN_PMF_STEPS, VN_FIT_STEPS, VN_REFIT_STEPS = 200, 100, 50
 VN_NODES, VN_TILE = 8, 64
-# one psd-project tile of 16 candidates (64 until phases 22-27 came: ~44 s,
-# 97 % eigh), so that the smoke keeps to its time
-VN_PSD_CAND = 16
+# one psd-project tile of 8 candidates (64 until phases 22-27 came: ~44 s,
+# 97 % eigh; 16 until phases 31-34 came), so that the smoke keeps to its
+# time
+VN_PSD_CAND = 8
 VN_MN_N = 12
 # card against CPU in float64: the same inputs and lane noise, the same
 # operations in other kernels' orders; tiles of 8 and 4 candidates
@@ -270,13 +299,13 @@ DB_N, DB_M, DB_D, DB_SAMPS, DB_WARMUP, DB_CHAINS = 94, 425, 20, 100, 50, 4
 # MovieLens shape (bench.py) at HMCConfig's d = 5 and the CLI's 100 draws
 # after 50 warmup
 ML_D, ML_SAMPS, ML_WARMUP = 5, 100, 50
-# a lookahead tile at the DrugBank shape: 32 candidates x 5 values = 160
-# lanes (exp-variance) at the CLI's lookahead budget (100 draws after 50
-# warmup), and 4 candidates (exp-entropy-est; 8 until phases 22-27 came)
-# at 30 after 15, so that the smoke keeps to its time (its matrix-normal
-# fit streams every draw at every sweep: PERF.md §5; at 20 draws after 10
-# its fits give NaN)
-LA_CAND, LA_ENT_CAND = 32, 4
+# a lookahead tile at the DrugBank shape: 16 candidates x 5 values = 80
+# lanes (exp-variance; 32 until phases 31-34 came) at the CLI's lookahead
+# budget (100 draws after 50 warmup), and 4 candidates (exp-entropy-est; 8
+# until phases 22-27 came) at 30 after 15, so that the smoke keeps to its
+# time (its matrix-normal fit streams every draw at every sweep: PERF.md
+# §5; at 20 draws after 10 its fits give NaN)
+LA_CAND, LA_ENT_CAND = 16, 4
 LA_BUDGET = {"total-variance": (100, 50), "entropy-est": (30, 15)}
 # float64 card against CPU: 12 x 10, d = 3, 6 lanes, a chain of 20 warmup
 # and 10 draws, the same noise on both. One transition, and each draw of
@@ -290,10 +319,11 @@ NUTS_F64_TOL = 1e-8
 STAN_N, STAN_M, STAN_D, STAN_POOL = 24, 30, 5, 12
 # RatingConcentration (phases 22-24): the fit and a lookahead tile at the
 # MovieLens shape in float64 (17 features for ratings 1..5, a dual of
-# 2 (n + m) 17 = 89,250 multipliers), 16 candidates x 5 values = 80 lanes
-# of 60 warm-started iterations; the card against the CPU, the loop and
-# the CLI on the reference experiment's own 10 x 10 data
-RC_LA_CAND, RC_LA_ITERS, RC_F64_TOL = 16, 60, 1e-8
+# 2 (n + m) 17 = 89,250 multipliers), 8 candidates x 5 values = 40 lanes
+# (16 until phases 31-34 came, so that the smoke keeps to its time) of 60
+# warm-started iterations; the card against the CPU, the loop and the CLI
+# on the reference experiment's own 10 x 10 data
+RC_LA_CAND, RC_LA_ITERS, RC_F64_TOL = 8, 60, 1e-8
 # the loop's and the CLI's refits are cut to 20 iterations (the CLI's
 # default is 500) and their lookaheads, and the card-vs-CPU check's, to 20
 # (60), so that phases 23-24 keep to their time: a refit there is
@@ -303,10 +333,11 @@ RC_SMALL = ROOT / "experiments" / "10x10_discrete2_d2" / "data.pkl"
 # cold start (phase 25): movielens-58k-newmovies-10pct-20d's configuration
 # (experiments/README.md:48-49) on synthetic ratings at the MovieLens shape:
 # the last 168 columns (10 %) new, d = 20, f32, the CLI's phase-2 chain of
-# 100 draws after 50 and lookahead of 100 after 50 over 32 candidates x 5
-# values (160 lanes); phase 1 (the CLI: 200 draws after 100) is cut to 60
-# draws after 30, so that the smoke keeps to its time
-CS_NEW, CS_D, CS_SAMPS, CS_FIT, CS_LA_CAND = 168, 20, 100, 60, 32
+# 100 draws after 50 and lookahead of 100 after 50 over 16 candidates x 5
+# values (80 lanes; 32 until phases 31-34 came); phase 1 (the CLI: 200
+# draws after 100) is cut to 60 draws after 30, so that the smoke keeps to
+# its time
+CS_NEW, CS_D, CS_SAMPS, CS_FIT, CS_LA_CAND = 168, 20, 100, 60, 16
 # the fit types (phase 27) at the MovieLens shape, d = 10, f32: mini-valid
 # with batches of 1,000 cells (1,587 steps an epoch), 500 validation cells,
 # the learning rate of the JAX package's test (tests/test_pmf.py:158), at
@@ -353,6 +384,23 @@ SCAN_GIBBS_STEPS, SCAN_EV_STEPS, SCAN_STAN_STEPS = 3, 2, 2
 # same order; errors to 1e-5 relative in float32 (scatter-adds' atomics
 # may sum in either order), picks equal
 SCAN_ERR_RTOL = 1e-5
+# the result tools and the experiment runner (phases 31-34): get_samples
+# at the MovieLens shape draws BASE_SAMPS; get_criteria at its defaults;
+# the runner's five arms of 10x10_discrete2_d2 (the catalog's argv, the
+# step budget set by the runner's --steps); parity on copies of two
+# committed experiment directories, with the row counts and hard_ok the
+# JAX package's checker gives there
+EXP_NAME, EXP_ARMS, EXP_STEPS = (
+    "10x10_discrete2_d2", ("apmf", "stan", "bayes", "mmmf", "rc"), 2)
+# the runner's depth cut (--set), to phase 21's budget: the stan arm's
+# draws 200 after 200 -> 10 after 6 and its lookahead's 100 after 50 -> 6
+# after 4 (uncut, its nine NUTS fits of 400 transitions and two 450-lane
+# lookaheads alone take far longer than the four phases may); the bayes
+# arm's base chains 200 -> 10 draws and its lookahead chains 100 -> 6
+EXP_SET = ("samps=10", "warmup=6", "lookahead-samps=6", "lookahead-warmup=4")
+EXP_TIMEOUT_S = 600
+COMMITTED_PARITY = {"10x10_discrete2_d2": (99, True),
+                    "drugbank-94x425": (25, False)}
 
 
 START = time.perf_counter()
@@ -1504,7 +1552,8 @@ def nuts_phases(device):
         check(row["finite"] == n_cand,
               f"nuts lookahead {stat} scores not all finite: {row}")
 
-    # the profiler's split of one lockstep transition of the 160-lane tile,
+    # the profiler's split of one lockstep transition of the exp-variance
+    # tile's lanes,
     # from the base mode
     n, m = db_prob.shape
     shapes = bpmf_hmc.ParamShapes(n, m, DB_D)
@@ -1535,7 +1584,7 @@ def nuts_phases(device):
     split = transition_split(one_transition)
     split.update(nuts.Counters.read())
     # the potential (forward and backward) eager and replayed from its CUDA
-    # graph, 160 lanes and 1; the graph's outputs equal the eager ones
+    # graph, the tile's lanes and 1; the graph's outputs equal the eager ones
     for lanes, lp in ((L, lambda q: bpmf_hmc.log_posterior(
             q, db_prob, mr, cfg, shapes, cells=cells)),
             (1, lambda q: bpmf_hmc.log_posterior(
@@ -1549,7 +1598,7 @@ def nuts_phases(device):
         split[f"potential_ms_{lanes}_lanes"] = dict(
             eager=cuda_ms(lambda: eager_pot(qx), 20),
             graph=cuda_ms(lambda: graph_pot(qx), 20))
-    tiles["transition_split_160_lanes"] = split
+    tiles[f"transition_split_{L}_lanes"] = split
     print(json.dumps(dict(phase="nuts_transition_split", **split)),
           flush=True)
     out["lookahead"] = tiles
@@ -1751,8 +1800,8 @@ def rc_phases(device, real, known):
     out["fit"] = fit
 
     stamp("23")
-    # ---- 23. a lookahead tile at the MovieLens shape: 16 candidates x 5
-    # values = 80 lanes of 60 warm-started iterations, f64
+    # ---- 23. a lookahead tile at the MovieLens shape: 8 candidates x 5
+    # values of 60 warm-started iterations, f64
     cand = torch.nonzero(prob.queryable.flatten())[:RC_LA_CAND, 0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2475,6 +2524,245 @@ def fit_type_phases(device, real, known):
           and rows["graphed_vs_eager_f64"] <= FT_GRAPH_TOL,
           f"fit types: {rows}")
     return rows
+
+
+def traced_phase(work, name, fn, trace=True):
+    """``fn()`` inside the port's ``device_trace`` (a Chrome trace of the
+    card under ``work``; with ``trace=False`` outside it), with the
+    Cholesky counts set to 0 just before and read just after: (its result,
+    wall s including the profiler's own cost, the counts, the trace's MB
+    and the seconds it took to write). The trace is not parsed here: a
+    phase's hundreds of thousands of launches take the profiler minutes to
+    sort."""
+    import torch
+
+    from amf_tpu_torch.ops import chol_kernel as ck
+    from amf_tpu_torch.utils.profiling import device_trace
+
+    ck.chol_gram_solve_sample_cuda.launches = 0
+    ck.chol_solve_sample_batch_minor.launches = 0
+    ck.chol_solve_sample_reference.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = work / f"trace_{name}"
+    with device_trace(str(path)) if trace else contextlib.nullcontext():
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not trace:
+        return res, wall, ck.launch_counts(), dict(traced=False)
+    return res, wall, ck.launch_counts(), dict(
+        traced=True, trace_mb=(path / "trace.json").stat().st_size / 1e6,
+        trace_write_s=time.perf_counter() - t0 - wall)
+
+
+def results_phases(real, known):
+    """Phases 31-34: the result tools, the experiment runner and the parity
+    checks, on phase 3's ratings; every CLI on its default device, the
+    card. Nothing here imports matplotlib: the card host has none, and the
+    text paths need none."""
+    import io
+    import os
+    import shutil
+    import signal
+    import threading
+    from collections import Counter
+
+    import numpy as np
+
+    from amf_tpu_torch.analysis import parity
+    from amf_tpu_torch.analysis import results as R
+    from amf_tpu_torch.data.loaders import save_npz_schema
+    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.ops import chol_kernel as ck
+    from amf_tpu_torch.run import (compare_firsts, get_criteria, get_samples,
+                                   plot_aucs, plot_results)
+
+    work = ROOT / "build" / "chip_smoke_results"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+
+    def printed(fn, lines=None):
+        """fn()'s standard output, echoed (its first ``lines`` lines)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        text = buf.getvalue()
+        print("\n".join(text.splitlines()[:lines]), flush=True)
+        return text
+
+    def no_plain(counts, what):
+        check(counts["s_given"] == 0 and counts["plain"] == 0,
+              f"{what}: the S-given entry or the plain Cholesky ran on the "
+              f"card: {counts}")
+
+    stamp("31")
+    # ---- 31. get_samples at the MovieLens shape: phase 3's ratings
+    data = work / "movielens_shape.npz"
+    save_npz_schema(str(data), {"_real": real, "_known": known,
+                                "_rating_vals": np.asarray(VALS)})
+    samples = work / "samples.npz"
+    _, wall, counts, split = traced_phase(work, "get_samples", lambda: (
+        get_samples.main(["--load-data", str(data), "-D", str(D), "-S",
+                          str(BASE_SAMPS), "--float32", "--out",
+                          str(samples)])))
+    f = np.load(samples)
+    draws = BASE_SAMPS * bpmf_gibbs.GibbsConfig().num_gibbs * 2
+    gs = dict(s=wall, s_per_draw=wall / BASE_SAMPS, draws=BASE_SAMPS,
+              U=list(f["U"].shape), V=list(f["V"].shape), **counts, **split)
+    print(json.dumps(dict(phase="get_samples", **gs)), flush=True)
+    check(f["U"].shape == (BASE_SAMPS, N, D) and f["V"].shape
+          == (BASE_SAMPS, M, D), f"get_samples shapes {gs}")
+    check(bool(np.isfinite(f["U"]).all() and np.isfinite(f["V"]).all()
+               and np.isfinite(f["mean_rating"])),
+          "get_samples wrote non-finite draws")
+    # a draw: num_gibbs sweeps, a U and a V row draw each, one launch a draw
+    check(counts["gram_fed"] == draws,
+          f"get_samples launched the Gram-fed kernel {counts['gram_fed']} "
+          f"times: want {draws}")
+    no_plain(counts, "get_samples")
+    out["get_samples"] = gs
+
+    stamp("32")
+    # ---- 32. get_criteria at its defaults (10 x 10, d = 2, 2 steps),
+    # outside the trace: its vn lookahead (psd-project on 40 x 40
+    # covariances, above the size PyTorch's batched eigh takes in one
+    # call) launches so many kernels that the profiler took minutes to
+    # write their trace
+    crit = work / "criteria"
+    text, wall, counts, split = traced_phase(work, "get_criteria", lambda: (
+        printed(lambda: get_criteria.main(["--outdir", str(crit)]))),
+        trace=False)
+    taus = [ln for ln in text.splitlines() if ln.startswith("kendall-tau")]
+    maps = {}
+    for name in ("apmf", "bayes"):
+        res = R.load_results(str(crit / f"results_{name}.pkl"))
+        real_c, rated = res["_real"], np.zeros(res["_real"].shape, bool)
+        rated[tuple(res["_ratings"][:, :2].astype(int).T)] = True
+        pool = int((np.isfinite(real_c) & (real_c != 0) & ~rated).sum())
+        for key, recs in res.items():
+            if key.startswith("_"):
+                continue
+            # 2 steps: the initial record and one query, whose map is
+            # finite on exactly the queryable cells, NaN elsewhere
+            ev = recs[1][3]
+            maps[key] = dict(finite=int(np.isfinite(ev).sum()), pool=pool)
+            check(len(recs) == 2 and all(np.isfinite(r[1]) for r in recs)
+                  and int(np.isfinite(ev).sum()) == pool
+                  and not np.isinf(ev).any(),
+                  f"get_criteria {key}: {maps[key]}")
+    gc = dict(s=wall, taus=taus, finite_cells=maps, **counts, **split)
+    print(json.dumps(dict(phase="get_criteria", **gc)), flush=True)
+    check(len(taus) == 6, f"get_criteria printed {taus}")
+    check(counts["gram_fed"] > 0, f"get_criteria: B1 not launched {counts}")
+    no_plain(counts, "get_criteria")
+    out["get_criteria"] = gc
+
+    stamp("33")
+    # ---- 33. the experiment runner, all five arms, then parity and the
+    # text CLIs on what it wrote; the arms run as processes of their own,
+    # each appending its Cholesky counts to a file at its exit
+    exp_dir = work / "experiments" / EXP_NAME
+    counts_file = work / "arm_counts.jsonl"
+
+    def run_experiment():
+        env = dict(os.environ, **{ck.COUNTS_FILE_ENV: str(counts_file)})
+        # the runner and its arms in a process group of their own, killed
+        # whole at the time limit; each arm's seconds from the runner's
+        # "[arm] running:" lines
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "amf_tpu_torch.run.experiment", EXP_NAME,
+             "--outdir", str(work / "experiments"), "--steps",
+             str(EXP_STEPS), "--device", "cuda", "--only", *EXP_ARMS,
+             *(a for kv in EXP_SET for a in ("--set", kv))],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        timer = threading.Timer(EXP_TIMEOUT_S, os.killpg,
+                                (proc.pid, signal.SIGKILL))
+        timer.start()
+        marks = [("data", t0)]
+        try:
+            for line in proc.stdout:
+                if line.startswith("[") and "] running:" in line:
+                    marks.append((line[1:line.index("]")],
+                                  time.perf_counter()))
+                print(line, end="", flush=True)
+            returncode = proc.wait()
+        finally:
+            timer.cancel()
+        runner_s = time.perf_counter() - t0
+        marks.append(("end", t0 + runner_s))
+        arm_s = {a: t1 - ta for (a, ta), (_, t1) in zip(marks, marks[1:])}
+        print(json.dumps(dict(phase="experiment_arms", s=arm_s)), flush=True)
+        check(returncode == 0, f"experiment runner exited {returncode}")
+        t0 = time.perf_counter()
+        rows, hard_ok = parity.check_experiment_dir(str(exp_dir))
+        pkls = sorted(str(p) for p in exp_dir.glob("results_*.pkl"))
+        text = printed(lambda: (
+            plot_results.main(pkls + ["--aucs"]), plot_aucs.main(pkls)))
+        text += printed(lambda: compare_firsts.main(pkls), lines=12)
+        return (runner_s, arm_s, rows, hard_ok, pkls, text,
+                time.perf_counter() - t0)
+
+    (runner_s, arm_s, rows, hard_ok, pkls, text, host_s), wall, _, split = (
+        traced_phase(work, "experiment", run_experiment))
+    arms = {}
+    for line in counts_file.read_text().splitlines():
+        rec = json.loads(line)
+        arm = Path(rec["argv"][0]).stem
+        arms[arm] = {k: arms.get(arm, {}).get(k, 0) + rec[k]
+                     for k in ("gram_fed", "s_given", "plain")}
+    for row in rows:
+        print(f"[{row['status']:<4}] {row['check']:<20} "
+              f"{row.get('run', '-'):<6} "
+              f"{row['key']}  {row['detail']}", flush=True)
+    hard = [r for r in rows
+            if r["check"] in ("structural", "initial_consistency")]
+    exp = dict(s=wall, runner_s=runner_s, arm_s=arm_s,
+               parity_and_text_s=host_s,
+               results=[Path(p).name for p in pkls], rows=len(rows),
+               hard_ok=hard_ok,
+               statuses=dict(Counter(r["status"] for r in rows)),
+               arm_counts=arms, **split)
+    print(json.dumps(dict(phase="experiment", **exp)), flush=True)
+    check(len(pkls) == len(EXP_ARMS), f"experiment wrote {pkls}")
+    check(len(hard) >= len(EXP_ARMS)
+          and all(r["status"] == "pass" for r in hard),
+          f"experiment: a structural row failed: {hard}")
+    check(arms.get("bayes_pmf", {}).get("gram_fed", 0) > 0,
+          f"the bayes arm launched no B1: {arms}")
+    check(all(c["s_given"] == 0 and c["plain"] == 0 for c in arms.values()),
+          f"an arm ran the S-given entry or the plain Cholesky: {arms}")
+    check(all(h in text for h in ("area under RMSE curve", "auc mean",
+                                  "kendall_tau")),
+          "the text CLIs printed no table")
+    out["experiment"] = exp
+
+    stamp("34")
+    # ---- 34. parity on copies of committed experiment directories
+    def committed():
+        got = {}
+        for name, (n_rows, ok) in COMMITTED_PARITY.items():
+            dst = work / "committed" / name
+            shutil.copytree(ROOT / "experiments" / name, dst)
+            rows, hard_ok = parity.check_experiment_dir(str(dst))
+            got[name] = dict(rows=len(rows), hard_ok=hard_ok, statuses=dict(
+                Counter(r["status"] for r in rows)))
+            check(len(rows) == n_rows and hard_ok is ok,
+                  f"parity on {name}: {got[name]}, want {n_rows} rows and "
+                  f"hard_ok {ok}")
+        return got
+
+    got, wall, _, _ = traced_phase(work, "parity", committed)
+    print(json.dumps(dict(phase="parity_committed", s=wall, **got)),
+          flush=True)
+    check("matplotlib" not in sys.modules, "a phase imported matplotlib")
+    check(not any(m == "jax" or m.startswith(("jax.", "amf_tpu."))
+                  for m in sys.modules), "a phase imported JAX")
+    out["parity_committed"] = got
+    return out
 
 
 def main() -> int:
@@ -3294,6 +3582,8 @@ def main() -> int:
     mmmf_phases(device, real, known)
     scan = scan_phases(device, prob, real, known,
                        vn["loops"]["vn"]["pred-variance"])
+    # ---- 31-34. the result tools, the experiment runner, parity
+    results = results_phases(real, known)
     stamp("end")
 
     def wide_row(row, launches, src):
@@ -3356,6 +3646,13 @@ def main() -> int:
         # from 0 just before it
         "scan_sweep_launches":
             scan["gibbs_exp_variance"]["chol_kernel"]["scan"]["gram_fed"],
+        # phases 31-33, each counted from 0 just before it (the bayes
+        # arm's from its own process)
+        "results_phases_launches": {
+            "get_samples": results["get_samples"]["gram_fed"],
+            "get_criteria": results["get_criteria"]["gram_fed"],
+            "experiment_bayes_arm": results["experiment"]["arm_counts"][
+                "bayes_pmf"]["gram_fed"]},
         "max_abs_err": max(r["max_abs_err"] for r in gram),
         **{k: gram_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "gram_to_x_ms", "gram_to_x_assembled_ms")},

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import torch_nuts_replay as rp
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu import types as jtypes
 from amf_tpu.data import make_fake_data
 from amf_tpu.models import bpmf_hmc as jh

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu_torch import types as ttypes
 from amf_tpu_torch.data.synthetic import make_fake_data
 from amf_tpu_torch.utils.checkpoint import LoopCheckpointer, problem_fingerprint

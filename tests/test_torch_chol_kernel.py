@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu_torch.ops import chol_kernel as tck
 from amf_tpu_torch.ops import cuda_build
 

@@ -8,6 +8,8 @@ import sys
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SLICE = [
@@ -35,7 +37,12 @@ SLICE = [
     "amf_tpu_torch.models.newitems", "amf_tpu_torch.run.bpmf_newitems",
     "amf_tpu_torch.models.mmmf", "amf_tpu_torch.models.sdpa_io",
     "amf_tpu_torch.active.mmmf_loop", "amf_tpu_torch.run.active_mmmf",
-    "amf_tpu_torch.active.scan_loop",
+    "amf_tpu_torch.active.scan_loop", "amf_tpu_torch.utils.profiling",
+    "amf_tpu_torch.analysis.results", "amf_tpu_torch.analysis.parity",
+    "amf_tpu_torch.run.plot_results", "amf_tpu_torch.run.plot_aucs",
+    "amf_tpu_torch.run.compare_firsts", "amf_tpu_torch.run.generate",
+    "amf_tpu_torch.run.choose_training", "amf_tpu_torch.run.get_samples",
+    "amf_tpu_torch.run.get_criteria", "amf_tpu_torch.run.experiment",
 ]
 
 
@@ -177,6 +184,27 @@ def test_mmmf_and_scan_entry_points_default_to_the_card():
             sweep(None, None, "random", 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         scan_loop.run_active_scan(None, None, "random", 1)
+
+
+def test_result_tool_entry_points_default_to_the_card(tmp_path):
+    """The new CLIs that take --device run on the card unless the CPU is
+    named; the text CLIs read pickles on the host and take no device."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default would run on it")
+    from amf_tpu_torch.run import (choose_training, experiment, generate,
+                                   get_criteria, get_samples)
+
+    for cli, argv in (
+            (get_samples, ["--load-data", "never-read.npz"]),
+            (get_criteria, ["--outdir", str(tmp_path / "crit")]),
+            (generate, ["-m", "2", "-n", "2", "-r", "1", "-k", "0", "-K",
+                        "0", str(tmp_path / "never.pkl")]),
+            (choose_training, ["never-read.npy", str(tmp_path / "n.npz")]),
+            (experiment, ["10x10_discrete2_d2", "--outdir",
+                          str(tmp_path / "exp")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    assert not list(tmp_path.iterdir())
 
 
 def test_constructors_default_to_the_card():

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu.ops.lbfgsb import lbfgsb as jlbfgsb
 from amf_tpu_torch.ops import lbfgsb as tl
 

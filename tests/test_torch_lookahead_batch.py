@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu import types as jtypes
 from amf_tpu.models import pmf as jpmf
 from amf_tpu.ops import pallas_kernels as jpk

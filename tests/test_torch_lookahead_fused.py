@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu_torch.models import pmf as tpmf
 from amf_tpu_torch.ops import pmf_kernels as tpk
 from amf_tpu_torch.types import Problem

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu_torch import convert
 from amf_tpu_torch.active import criteria as tcrit
 from amf_tpu_torch.active import lookahead as tla

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu_torch.ops import moments as tm
 from amf_tpu_torch.ops import psd as tpsd
 from amf_tpu_torch.ops import quadrature as tq

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import torch_nuts_replay as rp
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu.mcmc import nuts as jnuts
 from amf_tpu_torch.mcmc import nuts as tnuts
 

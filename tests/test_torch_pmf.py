@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu import types as jtypes
 from amf_tpu.data import make_fake_data
 from amf_tpu.models import pmf as jpmf

@@ -22,6 +22,7 @@ import pytest
 import scipy.sparse
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu_torch.ops import pmf_kernels as tpk
 
 VAL = dict(rtol=1e-5)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu import types as jtypes
 from amf_tpu.active import rc_loop as jloop
 from amf_tpu.models import ratingconc as jrc

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu import types as jtypes
 from amf_tpu.active import scan_loop as jscan
 from amf_tpu_torch import convert, types

@@ -11,6 +11,7 @@ import gzip
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu.data import extractors as jext
 from amf_tpu.data import loaders as jload
 from amf_tpu.data import splits as jsplits

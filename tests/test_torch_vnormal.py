@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from amf_tpu_torch import convert
 from amf_tpu_torch.models import mnormal as tmn
 from amf_tpu_torch.models import pmf as tpmf
