@@ -5,7 +5,7 @@ reference: each module here mirrors the JAX module of the same name and is
 held against it by the ``tests/test_torch_*.py`` parity tests. This package
 imports ``torch`` and never ``jax``.
 
-Every family of the JAX package is ported but its device-mesh sharding.
+Every module of the JAX package is ported.
 The Gibbs BPMF ``exp-variance`` one-step lookahead with its active loop
 and the ``bayes_pmf`` command line; the PMF-refit lookahead
 ``models/pmf.fit_lookahead_batch`` in all of its paths (proposal loop,
@@ -20,9 +20,11 @@ loop and the ``bpmf`` command line; cold-start BPMF and its
 lane-batched projected L-BFGS) and its ``active_rc`` command line; MMMF
 (ADMM for the nuclear-norm program, the max-norm and ordinal variants,
 the margin selectors, SDPA interchange) with its loop and ``active_mmmf``
-command line; and the scan sweep, each active step's own logic on the
-device, behind ``--scan`` in three command lines. Every active loop
-checkpoints and resumes. Every kernel
+command line; the scan sweep, each active step's own logic on the
+device, behind ``--scan`` in three command lines; candidate and chain
+sharding over ranks of a ``torch.distributed`` group, one process a card,
+behind ``--shard-candidates`` in five command lines; and the native host
+kernels. Every active loop checkpoints and resumes. Every kernel
 the JAX package wrote in Pallas has a hand-written CUDA kernel here, built
 by nvcc at first use and loaded with ctypes (any factor width d: d <= 32
 from one library a source, a wider d from a library built for it), and a
@@ -67,7 +69,14 @@ the JAX package runs XLA's:
                 sweeps with their step logic on the device
   run           the bayes_pmf, add_rmse_boosts, active_pmf, bpmf,
                 bpmf_newitems, active_rc and active_mmmf command lines
-  entry         the flagship step (one pred-variance scoring pass)
+  parallel      mesh: one process a card joined by a process group
+                (spawned, or under torchrun); sharding: the candidate
+                shards, the gather, the pick and the chain split; dryrun:
+                every sharded path once on tiny shapes
+  _native       host C++ over numpy (the reference's MEX sparse sums),
+                built by g++ at first use
+  entry         the flagship step (one pred-variance scoring pass) and the
+                sharded dry run
   convert       state conversion to and from the JAX package's field layout
   utils         device and precision policy, seeded generator streams,
                 factorisations that give NaN where they fail, the loops'

@@ -45,11 +45,6 @@ class Family(NamedTuple):
     extra: Optional[Callable] = None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, port queue A)")
-
-
 def drive_active(
     problem,
     real: np.ndarray,
@@ -61,6 +56,7 @@ def drive_active(
     ckpt: Optional[LoopCheckpointer] = None,
     verbose: bool = False,
     replay: Optional[Dict[str, List]] = None,
+    mesh=None,
 ) -> Dict[str, List[tuple]]:
     """Run the per-criterion sweeps; returns {criterion: records}.
 
@@ -81,6 +77,10 @@ def drive_active(
     queried in order, with the step-indexed refit seeds the original run
     used, so the model trajectory is reproduced and the err trace can be
     re-scored under another metric.
+
+    ``mesh`` (``parallel.mesh.CandidateMesh``): every rank runs this loop on
+    the same state and takes the same pick from the gathered scores; each
+    pick is gathered and a rank that differs fails the run.
     """
     n, m = problem.shape
     ckpt = ckpt or LoopCheckpointer(None)
@@ -135,6 +135,9 @@ def drive_active(
                     flat = int(torch.argmax(
                         prob_k.queryable.flatten().to(torch.int32)))
                 evals = ev.cpu().numpy()
+            if mesh is not None:
+                mesh.check_same(flat, f"the pick of {kname} step "
+                                      f"{len(records)}")
             i, j = flat // m, flat % m
             t_score = time.time() - t_step
 

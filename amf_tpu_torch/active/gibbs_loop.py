@@ -14,9 +14,11 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from amf_tpu_torch.active.driver import Family, _not_ported, drive_active
+from amf_tpu_torch.active.driver import Family, drive_active
 from amf_tpu_torch.analysis import metrics
 from amf_tpu_torch.models import bpmf_gibbs, pmf
+from amf_tpu_torch.parallel.mesh import is_lead
+from amf_tpu_torch.parallel.sharding import sharded_candidate_scores
 from amf_tpu_torch.types import Problem, rating_bounds, ratings_array
 from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.platform import resolve_device
@@ -90,11 +92,13 @@ def gibbs_family(
     dtype=torch.float64,
     device="cuda",
     binary_acc: bool = False,
+    mesh=None,
 ) -> Tuple[Problem, Family, tuple]:
     """The Gibbs family's callables and its initial state: (the problem on
     ``device`` in ``dtype``, the :class:`Family`, (PMF state, statistics)
     of the initial fit and chain under ``fold_in_name(seed, "init")``).
-    Shared by the host loop and the scan sweep (``active/scan_loop``)."""
+    Shared by the host loop and the scan sweep (``active/scan_loop``).
+    ``mesh`` shards the ``exp-variance`` candidates over its ranks."""
     device = resolve_device(device)
     n, m = problem.shape
     problem = problem.to(device=device, dtype=dtype)
@@ -130,14 +134,18 @@ def gibbs_family(
     def lookahead(k, pst, prob, stats):
         # vals = () takes the continuous path (normal fit + trapezoid over
         # ppf points, bayes_pmf.py:446-453 semantics)
-        out = torch.full((n * m,), float("nan"), dtype=dtype, device=device)
         cand = torch.nonzero(prob.queryable.flatten())[:, 0]
-        if len(cand):  # a scan sweep scores after the pool is exhausted
-            out[cand] = bpmf_gibbs.exp_variance_scores(
-                k, pst, prob, pcfg, gcfg, stats, vals,
+        if not len(cand):  # a scan sweep scores after the pool is exhausted
+            return torch.full((n, m), torch.nan, dtype=dtype, device=device)
+
+        def score_flat(c, kk):
+            return bpmf_gibbs.exp_variance_scores(
+                kk, pst, prob, pcfg, gcfg, stats, vals,
                 num_samps=lookahead_samps, n_base_samples=num_samps,
-                cand=cand, candidate_tile=lookahead_tile)
-        return out.reshape(n, m)
+                cand=c, candidate_tile=lookahead_tile)
+
+        return sharded_candidate_scores(score_flat, n * m, mesh,
+                                        cand)(k).reshape(n, m)
 
     def evals_for(kname: str, pst, stats, prob, k):
         spec = KEYS[kname]
@@ -211,29 +219,33 @@ def run_active_gibbs(
     checkpoint_path: a partial-results pickle written every
     ``checkpoint_every`` steps and at each criterion's end; a run given an
     existing one resumes from its recorded picks (``active/driver.py``).
-    ``replay`` re-runs recorded pick lists. Not ported yet (raises if
-    given): ``mesh`` (candidate sharding).
+    ``replay`` re-runs recorded pick lists.
+
+    mesh (``parallel.mesh.CandidateMesh``): every rank runs the loop on the
+    same state and scores its shard of the ``exp-variance`` candidates; one
+    gather gives every rank every score (``parallel/sharding``). Only rank
+    0 prints and writes the checkpoint.
     """
     del lookahead_host_tiles  # see the docstring
     for k in key_names:
         if k not in KEYS:
             raise ValueError(f"unknown Gibbs criterion {k!r}")
-    if mesh is not None:
-        raise _not_ported("candidate sharding over a device mesh")
     problem, family, state0 = gibbs_family(
         problem, real, latent_d=latent_d, rating_values=rating_values,
         subtract_mean=subtract_mean, num_samps=num_samps,
         lookahead_samps=lookahead_samps, lookahead_tile=lookahead_tile,
         seed=seed, fit_type=fit_type, pcfg=pcfg, dtype=dtype, device=device,
-        binary_acc=binary_acc)
+        binary_acc=binary_acc, mesh=mesh)
     results: Dict[str, object] = {
         "_real": np.asarray(real),
         "_ratings": ratings_array(problem),
         "_rating_vals": tuple(sorted(rating_values)) or None,
     }
     ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
-                                        every=checkpoint_every)
+                                        every=checkpoint_every,
+                                        write=is_lead(mesh))
     results.update(
         drive_active(problem, real, key_names, family, state0, seed,
-                     steps=steps, ckpt=ckpt, verbose=verbose, replay=replay))
+                     steps=steps, ckpt=ckpt, verbose=verbose and is_lead(mesh),
+                     replay=replay, mesh=mesh))
     return results

@@ -23,6 +23,8 @@ from amf_tpu_torch.active import lookahead as lookahead_mod
 from amf_tpu_torch.active.driver import Family, drive_active
 from amf_tpu_torch.analysis import metrics
 from amf_tpu_torch.models import mnormal, pmf, vnormal
+from amf_tpu_torch.parallel.mesh import is_lead
+from amf_tpu_torch.parallel.sharding import sharded_candidate_scores
 from amf_tpu_torch.types import Problem, ratings_array
 from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.platform import resolve_device
@@ -59,12 +61,14 @@ def active_pmf_family(
     dtype=torch.float64,
     device=None,
     initial_state=None,
+    mesh=None,
 ) -> Tuple[Problem, Family, tuple]:
     """The variational family's callables and its initial state: (the
     problem on ``device`` in ``dtype``, the :class:`Family`, (PMF state,
     approximation or None)), the approximation fitted when a criterion of
     ``key_names`` needs it. Shared by the host loop and the scan sweep
-    (``active/scan_loop``); the arguments are :func:`run_active_pmf`'s."""
+    (``active/scan_loop``); the arguments are :func:`run_active_pmf`'s.
+    ``mesh`` shards the lookahead criteria's candidates over its ranks."""
     registry = (criteria_mod.KEY_FUNCS if model == "vn"
                 else criteria_mod.MN_KEY_FUNCS)
     for k in key_names:
@@ -142,12 +146,17 @@ def active_pmf_family(
                 crit, pmf.predicted_matrix(pst, pcfg), amv,
                 generator(k, device))
             return torch.where(prob.queryable, ev, torch.nan), crit.maximize
-        out = torch.full((n * m,), torch.nan, dtype=dtype, device=device)
         cand = torch.nonzero(prob.queryable.flatten())[:, 0]
-        if len(cand):  # a scan sweep scores after the pool is exhausted
-            out[cand] = lookahead_mod.lookahead_scores(
-                crit, pst, ast, prob, k, pcfg, adapter, lcfg, cand=cand)
-        return out.reshape(n, m), crit.maximize
+        if not len(cand):  # a scan sweep scores after the pool is exhausted
+            return (torch.full((n, m), torch.nan, dtype=dtype, device=device),
+                    crit.maximize)
+
+        def score_flat(c, kk):
+            return lookahead_mod.lookahead_scores(
+                crit, pst, ast, prob, kk, pcfg, adapter, lcfg, cand=c)
+
+        ev = sharded_candidate_scores(score_flat, n * m, mesh, cand)(k)
+        return ev.reshape(n, m), crit.maximize
 
     family = Family(
         nice_name=lambda kname: registry[kname].nice_name,
@@ -181,6 +190,7 @@ def run_active_pmf(
     initial_state=None,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 20,
+    mesh=None,
 ) -> Dict[str, object]:
     """Run the multi-criterion comparison (reference: compare(),
     active_pmf.py:1013-1092). Returns the reference results schema.
@@ -198,6 +208,11 @@ def run_active_pmf(
     checkpoint_path: a partial-results pickle written every
     ``checkpoint_every`` steps and at each criterion's end; a run given an
     existing one resumes from its recorded picks (``active/driver.py``).
+
+    mesh (``parallel.mesh.CandidateMesh``): every rank runs the loop on the
+    same state and scores its shard of a lookahead criterion's candidates;
+    one gather gives every rank every score (``parallel/sharding``). Only
+    rank 0 prints and writes the checkpoint.
     """
     problem, family, state0 = active_pmf_family(
         problem, real, key_names, latent_d=latent_d,
@@ -205,7 +220,7 @@ def run_active_pmf(
         refit_lookahead=refit_lookahead, fit_sigmas=fit_sigmas, seed=seed,
         model=model, pcfg=pcfg, lookahead_budget=lookahead_budget,
         lookahead_tile=lookahead_tile, cov_param=cov_param, dtype=dtype,
-        device=device, initial_state=initial_state)
+        device=device, initial_state=initial_state, mesh=mesh)
     results: Dict[str, object] = {
         "_real": np.asarray(real),
         "_ratings": ratings_array(problem),
@@ -213,7 +228,9 @@ def run_active_pmf(
         "_initial_state": state0,
     }
     ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
-                                        every=checkpoint_every)
+                                        every=checkpoint_every,
+                                        write=is_lead(mesh))
     results.update(drive_active(problem, real, key_names, family, state0,
-                                seed, steps=steps, ckpt=ckpt, verbose=verbose))
+                                seed, steps=steps, ckpt=ckpt,
+                                verbose=verbose and is_lead(mesh), mesh=mesh))
     return results

@@ -15,8 +15,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from amf_tpu_torch.active.driver import Family, _not_ported, drive_active
+from amf_tpu_torch.active.driver import Family, drive_active
 from amf_tpu_torch.models import ratingconc as rc
+from amf_tpu_torch.parallel.mesh import is_lead
+from amf_tpu_torch.parallel.sharding import sharded_candidate_scores
 from amf_tpu_torch.types import Problem
 from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.platform import resolve_device
@@ -49,14 +51,16 @@ def run_active_rc(
     ``entropy`` lookahead refits ``lookahead_tile`` candidates (x values)
     as one lockstep batch of lanes at a time (0: all at once); ``random``
     draws from a generator seeded by the step's seed. ``device``: the card
-    by default; without one that raises. ``mesh`` (candidate sharding) is
-    not ported and raises.
+    by default; without one that raises.
+
+    mesh (``parallel.mesh.CandidateMesh``): every rank runs the loop on the
+    same state and refits its shard of the ``entropy`` candidates; one
+    gather gives every rank every score (``parallel/sharding``). Only rank
+    0 prints and writes the checkpoint.
     """
     for k in key_names:
         if k not in rc.RC_KEYS:
             raise ValueError(f"unknown RC selector {k!r}")
-    if mesh is not None:
-        raise _not_ported("candidate sharding over a device mesh")
     device = resolve_device(device)
     n, m = problem.shape
     problem = problem.to(device=device, dtype=dtype)
@@ -97,9 +101,15 @@ def run_active_rc(
                             dtype=dtype, device=device)
             choose_max = True
         elif kname == "entropy":
-            ev = rc.entropy_lookahead_scores(
-                x, data, prob, cfg, lookahead_iters=lookahead_iters,
-                dtype=dtype, candidate_tile=lookahead_tile).reshape(n, m)
+            # deterministic: the scorer takes no seed
+            def score_flat(c, _k):
+                return rc.entropy_lookahead_scores(
+                    x, data, prob, cfg, lookahead_iters=lookahead_iters,
+                    dtype=dtype, cand=c, candidate_tile=lookahead_tile)
+
+            cand = torch.nonzero(prob.queryable.flatten())[:, 0]
+            ev = sharded_candidate_scores(score_flat, n * m, mesh,
+                                          cand)(k).reshape(n, m)
             choose_max = False
         else:  # ge-cutoff (select_ge_cutoff.m)
             P = rc.cell_probs(x, data, data.qmask)
@@ -110,7 +120,8 @@ def run_active_rc(
     # reference analogue: the MATLAB loops keep partial results and
     # warm-started multipliers across steps (evaluate_active.m:71-72)
     ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
-                                        every=checkpoint_every)
+                                        every=checkpoint_every,
+                                        write=is_lead(mesh))
     family = Family(
         nice_name=lambda kname: rc.RC_KEYS[kname][0],
         score=score,
@@ -119,5 +130,6 @@ def run_active_rc(
     )
     results.update(
         drive_active(problem, real, key_names, family, (x0, data0), seed,
-                     steps=steps, ckpt=ckpt, verbose=verbose))
+                     steps=steps, ckpt=ckpt, verbose=verbose and is_lead(mesh),
+                     mesh=mesh))
     return results

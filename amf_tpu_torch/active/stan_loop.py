@@ -16,10 +16,12 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from amf_tpu_torch.active.driver import Family, _not_ported, drive_active
+from amf_tpu_torch.active.driver import Family, drive_active
 from amf_tpu_torch.analysis import metrics
 from amf_tpu_torch.mcmc.nuts import SAMPLER_ERA
 from amf_tpu_torch.models import bpmf_hmc, pmf, sample_stats
+from amf_tpu_torch.parallel.mesh import is_lead
+from amf_tpu_torch.parallel.sharding import sharded_candidate_scores
 from amf_tpu_torch.types import Problem, rating_bounds, ratings_array
 from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.platform import resolve_device
@@ -69,6 +71,7 @@ def stan_family(
     dtype=torch.float64,
     device=None,
     verbose: bool = False,
+    mesh=None,
 ) -> Tuple[Problem, Family, tuple]:
     """The NUTS family's callables and its initial state: (the problem on
     ``device`` in ``dtype``, the :class:`Family`, (sampler state,
@@ -99,9 +102,15 @@ def stan_family(
     if warm_adapt and warm_warmup is None:
         warm_warmup = max(warmup // 4, 20)
 
+    # the candidate mesh doubles as the chain mesh when the chains divide
+    # over it (the reference's process-parallel Stan chains)
+    chain_mesh = (mesh if mesh is not None and chains > 1
+                  and chains % mesh.size == 0 else None)
+
     def sample(k, st, prob):
         return bpmf_hmc.samples(k, st, prob, cfg, num_samps, warmup,
-                                chains=chains, carry_adapt=warm_adapt,
+                                chains=chains, chain_mesh=chain_mesh,
+                                carry_adapt=warm_adapt,
                                 warm_warmup=warm_warmup)
 
     def stats_of(samps, mr):
@@ -120,15 +129,19 @@ def stan_family(
     stats0 = stats_of(samps0, st0.mean_rating)
 
     def lookahead(stat, k, st, prob, stats):
-        out = torch.full((n * m,), torch.nan, dtype=dtype, device=device)
         cand = torch.nonzero(prob.queryable.flatten())[:, 0]
-        if len(cand):  # a scan sweep scores after the pool is exhausted
-            out[cand] = bpmf_hmc.lookahead_scores(
-                k, st, prob, cfg, stats, vals, stat=stat,
+        if not len(cand):  # a scan sweep scores after the pool is exhausted
+            return torch.full((n, m), torch.nan, dtype=dtype, device=device)
+
+        def score_flat(c, kk):
+            return bpmf_hmc.lookahead_scores(
+                kk, st, prob, cfg, stats, vals, stat=stat,
                 num_samps=lookahead_samps, warmup=lookahead_warmup,
-                n_base_samples=num_samps, cand=cand,
+                n_base_samples=num_samps, cand=c,
                 candidate_tile=lookahead_tile)
-        return out.reshape(n, m)
+
+        return sharded_candidate_scores(score_flat, n * m, mesh,
+                                        cand)(k).reshape(n, m)
 
     def evals_for(kname, st, stats, prob, k):
         spec = KEYS[kname]
@@ -153,7 +166,7 @@ def stan_family(
         st, _ = st_pair
         st = bpmf_hmc.invalidate_mode(st, prob)
         st, samps = sample(k, st, prob)
-        if verbose:
+        if verbose and is_lead(mesh):
             # sampler diagnostics on the joint log density trace (what
             # Stan's own console reported; SURVEY.md §5.1)
             lp = samps["lp__"].cpu().numpy().reshape(chains, -1)
@@ -214,14 +227,17 @@ def run_active_stan(
     checkpoint_path: a partial-results pickle stamped with the sampler era,
     written every ``checkpoint_every`` steps and at each criterion's end; a
     run given an existing one resumes from its recorded picks.
-    device: the card by default; without one that raises. ``mesh``
-    (candidate sharding) is not ported and raises.
+    device: the card by default; without one that raises.
+
+    mesh (``parallel.mesh.CandidateMesh``): every rank runs the loop on the
+    same state and scores its shard of a lookahead criterion's candidates
+    (``parallel/sharding``); when ``chains`` > 1 is a multiple of its size
+    it also splits the chains (``bpmf_hmc.samples(chain_mesh=...)``). Only
+    rank 0 prints and writes the checkpoint.
     """
     for k in key_names:
         if k not in KEYS:
             raise ValueError(f"unknown stan criterion {k!r}")
-    if mesh is not None:
-        raise _not_ported("candidate sharding over a device mesh")
     problem, family, state0 = stan_family(
         problem, real, latent_d=latent_d, rating_values=rating_values,
         subtract_mean=subtract_mean, num_samps=num_samps, warmup=warmup,
@@ -229,7 +245,7 @@ def run_active_stan(
         lookahead_warmup=lookahead_warmup, lookahead_tile=lookahead_tile,
         seed=seed, model_init_map=model_init_map, binary_acc=binary_acc,
         warm_adapt=warm_adapt, warm_warmup=warm_warmup, cfg=cfg, dtype=dtype,
-        device=device, verbose=verbose)
+        device=device, verbose=verbose, mesh=mesh)
     results: Dict[str, object] = {
         "_real": np.asarray(real),
         "_ratings": ratings_array(problem),
@@ -237,8 +253,9 @@ def run_active_stan(
     }
     ckpt = LoopCheckpointer.for_problem(checkpoint_path, problem, real,
                                         every=checkpoint_every,
-                                        era=SAMPLER_ERA)
+                                        era=SAMPLER_ERA, write=is_lead(mesh))
     results.update(
         drive_active(problem, real, key_names, family, state0, seed,
-                     steps=steps, ckpt=ckpt, verbose=verbose))
+                     steps=steps, ckpt=ckpt, verbose=verbose and is_lead(mesh),
+                     mesh=mesh))
     return results

@@ -1,4 +1,5 @@
-"""The flagship step of the port (mirrors ``__graft_entry__.entry()``).
+"""The flagship step of the port (mirrors ``__graft_entry__.entry()``) and
+its sharded dry run (``dryrun_multichip``).
 
     step, (pst, ast, prob) = entry()       # on the card; entry("cpu")
     scores = step(pst, ast, prob)
@@ -51,3 +52,12 @@ def entry(device=None, dtype=torch.float32):
                                     generator=generator(fold_in(seed, 1),
                                                         device))
     return step, (pst, ast, prob)
+
+
+def dryrun_multichip(n_devices: int, device=None, backend=None):
+    """One sharded active step and every sharded lookahead family on
+    ``n_devices`` ranks, one a card (``parallel/dryrun.run_dryrun``; on
+    ``device="cpu"`` gloo processes). Returns rank 0's results."""
+    from amf_tpu_torch.parallel.dryrun import run_dryrun
+
+    return run_dryrun(n_devices, device=device, backend=backend)

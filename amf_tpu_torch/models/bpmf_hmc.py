@@ -30,9 +30,9 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from amf_tpu_torch.active.driver import _not_ported
 from amf_tpu_torch.mcmc import nuts
 from amf_tpu_torch.models import sample_stats
+from amf_tpu_torch.parallel.sharding import sharded_chain_map
 from amf_tpu_torch.types import LaneCells, Problem
 from amf_tpu_torch.utils.rng import fold_in, generator, lane_generators
 
@@ -363,10 +363,16 @@ def samples(
     metric and eps anchor, skipping the reasonable-eps search, and warmup
     drops to ``warm_warmup`` (if given). carry_adapt stores this run's
     final adaptation, the mean over chains, on the returned state.
-    chain_mesh (sharding chains over devices) is not ported and raises.
+
+    chain_mesh (``parallel.mesh.CandidateMesh``) splits the chains over its
+    ranks (``parallel.sharding.sharded_chain_map``; ``chains`` a multiple of
+    its size): each rank runs its share as lanes, and the draws, sampler
+    info and adaptation are gathered chain-major, so the mode and the
+    carried adaptation are taken over every chain, as unsharded. It takes
+    no ``noise``.
     """
-    if chain_mesh is not None:
-        raise _not_ported("chain sharding over a device mesh")
+    if chain_mesh is not None and noise is not None:
+        raise ValueError("samples takes noise or a chain_mesh, not both")
     if warmup is None:
         warmup = num_samps // 2
     n, m = problem.shape
@@ -376,20 +382,22 @@ def samples(
     warm = state.adapt_inv_mass.numel() > 0
     if warm and warm_warmup is not None:
         warmup = warm_warmup
-    if noise is None:
-        noise = nuts.GeneratorNoise(
-            [generator(fold_in(seed, c), device) for c in range(chains)],
-            shapes.dim, cfg.max_depth, dtype, device)
 
     def logp(q):
         return log_posterior(q, problem, state.mean_rating, cfg, shapes)
 
-    qs, info, adapt = nuts.run_nuts(
-        noise, state.mode_q.expand(chains, shapes.dim), logp, num_samps,
-        warmup, cfg=nuts.NUTSConfig(max_depth=cfg.max_depth),
-        eps_anchor=state.adapt_eps if warm else None,
-        init_inv_mass=state.adapt_inv_mass if warm else None,
-        return_adaptation=True)
+    def run_chains(ids):
+        lane_noise = noise if noise is not None else nuts.GeneratorNoise(
+            [generator(fold_in(seed, c), device) for c in ids],
+            shapes.dim, cfg.max_depth, dtype, device)
+        return nuts.run_nuts(
+            lane_noise, state.mode_q.expand(len(ids), shapes.dim), logp,
+            num_samps, warmup, cfg=nuts.NUTSConfig(max_depth=cfg.max_depth),
+            eps_anchor=state.adapt_eps if warm else None,
+            init_inv_mass=state.adapt_inv_mass if warm else None,
+            return_adaptation=True)
+
+    qs, info, adapt = sharded_chain_map(run_chains, chains, chain_mesh)
     qs = qs.reshape(chains * num_samps, shapes.dim)
     lps = info.logprob.reshape(-1)
     best = torch.argmax(lps)

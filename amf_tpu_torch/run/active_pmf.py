@@ -10,8 +10,9 @@ partial-results pickle and resumes from one. ``--scan`` runs each
 criterion's sweep with its step logic on the device
 (``active/scan_loop.run_active_scan``) and writes the host path's layout;
 it refuses ``--fit-sigmas``, as the JAX package's does.
-``--shard-candidates`` is not ported yet and exits with a message naming
-the ROADMAP item.
+``--shard-candidates N`` runs N ranks (``parallel/mesh.launch``), each
+scoring a shard of a lookahead criterion's candidates; rank 0 prints and
+writes. With ``--scan`` the sweep runs unsharded.
 
     python -m amf_tpu_torch.run.active_pmf --device cuda -N 24 -M 24 -D 2 \\
         --mask .2 total-variance
@@ -25,10 +26,6 @@ import pickle
 import sys
 
 import numpy as np
-
-_NOT_PORTED = (
-    "{flag} is not ported to amf_tpu_torch yet (ROADMAP.md, port queue A)")
-
 
 def add_bool_opt(parser, name, default=False):
     parser.add_argument("--" + name, action="store_true", default=default)
@@ -89,7 +86,10 @@ def build_parser():
                          help="with --scan: also record per-step criterion "
                               "maps in the results (steps*n*m memory)")
     running.add_argument("--shard-candidates", type=int, default=0,
-                         metavar="N_DEVICES", help="not ported yet")
+                         metavar="N_DEVICES",
+                         help="score the lookahead candidates on N ranks, "
+                              "one a card (gloo processes with --device "
+                              "cpu)")
     running.add_argument("--lookahead-tile", type=int, default=0,
                          help="candidates a tile of lookahead lanes (memory "
                               "bound; 0 = the whole pool)")
@@ -145,20 +145,27 @@ def main(argv=None):
             sys.stderr.write(f"Invalid key name {k}; options are "
                              f"{', '.join(sorted(registry))}.\n")
             sys.exit(1)
-    if args.shard_candidates:
-        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
     if args.scan and args.fit_sigmas:
         sys.stderr.write("--scan does not support --fit-sigmas\n")
         sys.exit(1)
+    from amf_tpu_torch.parallel.mesh import launch_cli
 
+    return launch_cli(_run, args, key_names)
+
+
+def _run(mesh, args, key_names):
     from amf_tpu_torch import convert, types
     from amf_tpu_torch.active import loop
+    from amf_tpu_torch.active.criteria import KEY_FUNCS, MN_KEY_FUNCS
     from amf_tpu_torch.data.loaders import load_npz_schema
     from amf_tpu_torch.data.synthetic import make_fake_data
+    from amf_tpu_torch.parallel.mesh import is_lead
     from amf_tpu_torch.utils.platform import setup as platform_setup
 
+    registry = KEY_FUNCS if args.model == "vn" else MN_KEY_FUNCS
+    lead = is_lead(mesh)
     device, dtype = platform_setup(use_x64=not args.float32, device=args.device)
-    if args.verbose:
+    if args.verbose and lead:
         print(f"device: {device}, {dtype}")
 
     try:
@@ -172,7 +179,7 @@ def main(argv=None):
 
     if args.save_results is True:
         args.save_results = "results.pkl"
-    if args.save_results:
+    if args.save_results and lead:
         dirname = os.path.dirname(args.save_results)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -201,7 +208,8 @@ def main(argv=None):
     initial_state = None
     if args.load_model:
         initial_state = _load_initial_state(args.load_model, args.model)
-        print(f"reusing initial model from {args.load_model}")
+        if lead:
+            print(f"reusing initial model from {args.load_model}")
 
     loop_kw = dict(
         latent_d=args.latent_d,
@@ -234,9 +242,9 @@ def main(argv=None):
     else:
         results = loop.run_active_pmf(
             problem, real, key_names, steps=args.steps, verbose=args.verbose,
-            checkpoint_path=args.checkpoint, **loop_kw)
+            checkpoint_path=args.checkpoint, mesh=mesh, **loop_kw)
 
-    if args.save_results:
+    if args.save_results and lead:
         print(f"saving results in '{args.save_results}'")
         results = dict(results)
         # the initial snapshot as numpy arrays, for --load-model

@@ -7,8 +7,9 @@ Mirrors the reference bridge ``ratingconcentration/active_rc.py main()``
 reference's "+.01 if zeros present" data shift (active_rc.py:52-54), plus
 ``--device`` (``cuda`` by default; ``cpu`` only when named).
 ``--checkpoint`` writes a partial-results pickle and resumes from one.
-``--shard-candidates`` is not ported yet and exits with a message naming
-the ROADMAP item.
+``--shard-candidates N`` runs N ranks (``parallel/mesh.launch``), each
+refitting a shard of the ``entropy`` candidates; rank 0 prints and
+writes.
 
     python -m amf_tpu_torch.run.active_rc --load-data data.npz -s 10 entropy
 """
@@ -21,10 +22,6 @@ import pickle
 import sys
 
 import numpy as np
-
-_NOT_PORTED = (
-    "{flag} is not ported to amf_tpu_torch yet (ROADMAP.md, port queue A)")
-
 
 def main(argv=None):
     from amf_tpu_torch.models.ratingconc import RC_KEYS
@@ -42,7 +39,9 @@ def main(argv=None):
                         help="candidates per lockstep lookahead batch "
                              "(memory bound)")
     parser.add_argument("--shard-candidates", type=int, default=0,
-                        metavar="N_DEVICES", help="not ported yet")
+                        metavar="N_DEVICES",
+                        help="refit the entropy candidates on N ranks, one "
+                             "a card (gloo processes with --device cpu)")
     parser.add_argument("--checkpoint", default=None, metavar="FILE",
                         help="partial-results checkpoint for exact resume")
     parser.add_argument("--any-vals", action="store_true", default=False,
@@ -68,19 +67,23 @@ def main(argv=None):
                 f"Invalid key name {k}; options are {', '.join(sorted(RC_KEYS))}.\n"
             )
             sys.exit(1)
-    if args.shard_candidates:
-        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
+    from amf_tpu_torch.parallel.mesh import launch_cli
 
+    return launch_cli(_run, args, key_names)
+
+
+def _run(mesh, args, key_names):
     from amf_tpu_torch import types
     from amf_tpu_torch.active.rc_loop import run_active_rc
     from amf_tpu_torch.data.loaders import load_npz_schema
+    from amf_tpu_torch.parallel.mesh import is_lead
     from amf_tpu_torch.utils.platform import setup as platform_setup
 
     device, dtype = platform_setup(use_x64=not args.float32, device=args.device)
 
     if args.save_results is True:
         args.save_results = "results.pkl"
-    if args.save_results:
+    if args.save_results and is_lead(mesh):
         dirname = os.path.dirname(args.save_results)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -127,10 +130,10 @@ def main(argv=None):
         lookahead_tile=args.lookahead_tile,
         max_iters=args.max_iters,
         dtype=dtype, device=device, verbose=args.verbose,
-        checkpoint_path=args.checkpoint,
+        checkpoint_path=args.checkpoint, mesh=mesh,
     )
 
-    if args.save_results:
+    if args.save_results and is_lead(mesh):
         print(f"\nsaving results in '{args.save_results}'")
         out = {("rc_" + k if not k.startswith("_") else k): v
                for k, v in results.items()}

@@ -7,8 +7,9 @@ schema and results pickle, plus ``--device``. ``--checkpoint`` writes a
 partial-results pickle and resumes from one. ``--scan`` runs each
 criterion's sweep with its step logic on the device
 (``active/scan_loop.run_gibbs_scan``) and writes the host path's layout;
-``--shard-candidates`` is not ported yet and exits with a message naming
-the ROADMAP item.
+``--shard-candidates N`` runs N ranks (``parallel/mesh.launch``), each
+scoring a shard of the ``exp-variance`` candidates; rank 0 prints and
+writes. With ``--scan`` the sweep runs unsharded.
 
     python -m amf_tpu_torch.run.bayes_pmf --load-data data.npz exp-variance
 """
@@ -22,10 +23,6 @@ import pickle
 import sys
 
 import numpy as np
-
-_NOT_PORTED = (
-    "{flag} is not ported to amf_tpu_torch yet (ROADMAP.md, port queue A)")
-
 
 def main(argv=None):
     from amf_tpu_torch.active.gibbs_loop import KEYS
@@ -53,7 +50,9 @@ def main(argv=None):
                         help="accepted for compatibility: lookahead tiles "
                              "are always dispatched from the host here")
     parser.add_argument("--shard-candidates", type=int, default=0,
-                        metavar="N_DEVICES", help="not ported yet")
+                        metavar="N_DEVICES",
+                        help="score the lookahead candidates on N ranks, "
+                             "one a card (gloo processes with --device cpu)")
     parser.add_argument("--scan-evals", action="store_true", default=False,
                         help="with --scan: also record per-step criterion "
                              "maps in the results (steps*n*m memory)")
@@ -87,23 +86,28 @@ def main(argv=None):
                 f"Invalid key name {k}; options are {', '.join(sorted(KEYS))}.\n"
             )
             sys.exit(1)
-    if args.shard_candidates:
-        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
+    from amf_tpu_torch.parallel.mesh import launch_cli
 
+    return launch_cli(_run, args, key_names)
+
+
+def _run(mesh, args, key_names):
     import torch
 
     from amf_tpu_torch import types
-    from amf_tpu_torch.active.gibbs_loop import (gibbs_family, run_active_gibbs,
+    from amf_tpu_torch.active.gibbs_loop import (KEYS, gibbs_family,
+                                                 run_active_gibbs,
                                                  split_query_test)
     from amf_tpu_torch.data.loaders import load_npz_schema
     from amf_tpu_torch.models.pmf import parse_fit_type
+    from amf_tpu_torch.parallel.mesh import is_lead
     from amf_tpu_torch.utils.platform import setup as platform_setup
 
     device, dtype = platform_setup(use_x64=not args.float32, device=args.device)
 
     if args.save_results is True:
         args.save_results = "results.pkl"
-    if args.save_results:
+    if args.save_results and is_lead(mesh):
         dirname = os.path.dirname(args.save_results)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -160,15 +164,17 @@ def main(argv=None):
     else:
         results = run_active_gibbs(
             problem, real, key_names, steps=args.steps, seed=args.seed,
-            verbose=args.verbose, checkpoint_path=args.checkpoint, **loop_kw)
+            verbose=args.verbose, checkpoint_path=args.checkpoint, mesh=mesh,
+            **loop_kw)
 
-    if args.save_results:
+    if args.save_results and is_lead(mesh):
         print(f"\nsaving results in '{args.save_results}'")
         results = dict(results)
         results["_kind"] = "bayes"
         results["_args"] = vars(args)
         with open(args.save_results, "wb") as f:
             pickle.dump(results, f)
+    return results
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ partial-results pickle and resumes from one. ``--scan`` runs each
 criterion's sweep with its step logic on the device
 (``active/scan_loop.run_stan_scan``) and writes the host path's layout;
 it refuses ``--warm-adapt``, as the JAX package's does.
-``--shard-candidates`` is not ported yet and exits with a message naming
-the ROADMAP item.
+``--shard-candidates N`` runs N ranks (``parallel/mesh.launch``), each
+scoring a shard of a lookahead criterion's candidates and, when
+``--chains`` is a multiple of N, running its share of the chains; rank 0
+prints and writes. With ``--scan`` the sweep runs unsharded.
 
     python -m amf_tpu_torch.run.bpmf --load-data data.npz -D 5 exp-variance
 """
@@ -26,9 +28,6 @@ import pickle
 import sys
 
 import numpy as np
-
-_NOT_PORTED = (
-    "{flag} is not ported to amf_tpu_torch yet (ROADMAP.md, port queue A)")
 
 MODEL_BY_FILE = {
     "bpmf_w0identity.stan": "w0identity",
@@ -52,7 +51,10 @@ def main(argv=None):
                         help="candidates per lockstep lookahead batch "
                              "(memory bound)")
     parser.add_argument("--shard-candidates", type=int, default=0,
-                        metavar="N_DEVICES", help="not ported yet")
+                        metavar="N_DEVICES",
+                        help="score the lookahead candidates (and split "
+                             "the chains) on N ranks, one a card (gloo "
+                             "processes with --device cpu)")
     parser.add_argument("--scan", action="store_true", default=False,
                         help="run each sweep with its step logic on the "
                              "device (active/scan_loop.py)")
@@ -111,8 +113,6 @@ def main(argv=None):
                 f"Invalid key name {k}; options are {', '.join(sorted(KEYS))}.\n"
             )
             sys.exit(1)
-    if args.shard_candidates:
-        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
     if args.scan and args.warm_adapt:
         parser.error("--warm-adapt needs the host loop, as in the JAX "
                      "package; drop --scan")
@@ -121,22 +121,29 @@ def main(argv=None):
             f"Unknown --model-filename {args.model_filename}; options are "
             f"{', '.join(sorted(MODEL_BY_FILE))}.\n")
         sys.exit(1)
+    from amf_tpu_torch.parallel.mesh import launch_cli
 
+    return launch_cli(_run, args, key_names)
+
+
+def _run(mesh, args, key_names):
     import torch
 
     from amf_tpu_torch import types
     from amf_tpu_torch.active.gibbs_loop import split_query_test
-    from amf_tpu_torch.active.stan_loop import run_active_stan, stan_family
+    from amf_tpu_torch.active.stan_loop import (KEYS, run_active_stan,
+                                                stan_family)
     from amf_tpu_torch.data.loaders import load_npz_schema
     from amf_tpu_torch.mcmc.nuts import SAMPLER_ERA
     from amf_tpu_torch.models import bpmf_hmc
+    from amf_tpu_torch.parallel.mesh import is_lead
     from amf_tpu_torch.utils.platform import setup as platform_setup
 
     device, dtype = platform_setup(use_x64=not args.float32, device=args.device)
 
     if args.save_results is True:
         args.save_results = "results.pkl"
-    if args.save_results:
+    if args.save_results and is_lead(mesh):
         dirname = os.path.dirname(args.save_results)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -204,9 +211,9 @@ def main(argv=None):
     else:
         results = run_active_stan(
             problem, real, key_names, steps=args.steps,
-            checkpoint_path=args.checkpoint, **loop_kw)
+            checkpoint_path=args.checkpoint, mesh=mesh, **loop_kw)
 
-    if args.save_results:
+    if args.save_results and is_lead(mesh):
         print(f"\nsaving results in '{args.save_results}'")
         results = dict(results)
         results["_kind"] = "stan"

@@ -8,8 +8,9 @@ inherits the FULL criterion registry of the stan path, including the
 sampling lookaheads (bpmf_newitems.py:48 reusing bpmf.py:544-556). Same
 flags as the JAX package's CLI plus ``--device`` (``cuda`` by default;
 ``cpu`` only when named). ``--checkpoint`` writes a partial-results pickle
-stamped with the sampler era and resumes from one. ``--shard-candidates``
-is not ported yet and exits with a message naming the ROADMAP item.
+stamped with the sampler era and resumes from one. ``--shard-candidates
+N`` runs N ranks (``parallel/mesh.launch``), each scoring a shard of a
+lookahead criterion's candidates; rank 0 prints and writes.
 
     python -m amf_tpu_torch.run.bpmf_newitems --load-data split.npz -D 20 \\
         --initial-fit-file fit.npz exp-variance
@@ -30,8 +31,6 @@ KEY_CHOICES = (
 )
 _MINIMIZE = ("exp-variance", "exp-entropy-est")
 _CUTOFFS = (3.5, 0.5, 0.0)
-_NOT_PORTED = (
-    "{flag} is not ported to amf_tpu_torch yet (ROADMAP.md, port queue A)")
 
 
 def main(argv=None):
@@ -45,7 +44,9 @@ def main(argv=None):
     parser.add_argument("--lookahead-tile", type=int, default=256,
                         help="candidates per lockstep lookahead batch")
     parser.add_argument("--shard-candidates", type=int, default=0,
-                        metavar="N_DEVICES", help="not ported yet")
+                        metavar="N_DEVICES",
+                        help="score the lookahead candidates on N ranks, "
+                             "one a card (gloo processes with --device cpu)")
     parser.add_argument("--initial-fit-samps", type=int, default=200)
     parser.add_argument("--initial-fit-file", default=None,
                         help="cache the phase-1 posterior means here (.npz)")
@@ -75,9 +76,12 @@ def main(argv=None):
                 f"Invalid key name {k}; options are {', '.join(KEY_CHOICES)}.\n"
             )
             sys.exit(1)
-    if args.shard_candidates:
-        sys.exit(_NOT_PORTED.format(flag="--shard-candidates"))
+    from amf_tpu_torch.parallel.mesh import launch_cli
 
+    return launch_cli(_run, args, key_names)
+
+
+def _run(mesh, args, key_names):
     import torch
 
     from amf_tpu_torch import types
@@ -86,16 +90,19 @@ def main(argv=None):
     from amf_tpu_torch.data.loaders import load_npz_schema
     from amf_tpu_torch.mcmc.nuts import SAMPLER_ERA
     from amf_tpu_torch.models import bpmf_hmc, newitems, sample_stats
+    from amf_tpu_torch.parallel.mesh import is_lead
+    from amf_tpu_torch.parallel.sharding import sharded_candidate_scores
     from amf_tpu_torch.types import rating_bounds
     from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
     from amf_tpu_torch.utils.platform import setup as platform_setup
     from amf_tpu_torch.utils.rng import fold_in_name, generator
 
     device, dtype = platform_setup(use_x64=not args.float32, device=args.device)
+    lead = is_lead(mesh)
 
     if args.save_results is True:
         args.save_results = "results.pkl"
-    if args.save_results:
+    if args.save_results and lead:
         dirname = os.path.dirname(args.save_results)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -120,20 +127,26 @@ def main(argv=None):
     cfg = bpmf_hmc.HMCConfig(latent_d=args.latent_d)
 
     # ---- phase 1 (cacheable; reference: bpmf_newitems.py:79-101)
-    if args.initial_fit_file and os.path.exists(args.initial_fit_file):
+    cached_fit = bool(args.initial_fit_file
+                      and os.path.exists(args.initial_fit_file))
+    if mesh is not None:  # every rank decides before rank 0 may write it
+        mesh.check_same(cached_fit, "whether the initial fit file exists")
+    if cached_fit:
         cached = np.load(args.initial_fit_file)
 
         def load(name):
             return torch.as_tensor(cached[name], device=device).to(dtype)
 
         U_mean, V_fixed, mr = load("U"), load("V_fixed"), load("mean_rating")
-        print(f"loaded initial fit from {args.initial_fit_file}")
+        if lead:
+            print(f"loaded initial fit from {args.initial_fit_file}")
     else:
-        print("running initial full fit on old items...")
+        if lead:
+            print("running initial full fit on old items...")
         U_mean, V_fixed, mr = newitems.initial_full_fit(
             fold_in_name(args.seed, "initial-fit"), problem, is_new, cfg,
             num_samps=args.initial_fit_samps, dtype=dtype)
-        if args.initial_fit_file:
+        if args.initial_fit_file and lead:
             np.savez(args.initial_fit_file, U=U_mean.cpu().numpy(),
                      V_fixed=V_fixed.cpu().numpy(),
                      mean_rating=mr.cpu().numpy())
@@ -170,14 +183,16 @@ def main(argv=None):
             stat = ("total-variance" if kname == "exp-variance"
                     else "entropy-est")
             cand = torch.nonzero(prob.queryable.flatten())[:, 0]
-            ev = torch.full((n * m_new,), torch.nan, dtype=dtype,
-                            device=device)
-            ev[cand] = newitems.lookahead_scores(
-                k, st, prob, cfg, stats, vals, stat=stat,
-                num_samps=args.lookahead_samps, warmup=args.lookahead_warmup,
-                n_base_samples=args.samps, cand=cand,
-                candidate_tile=args.lookahead_tile)
-            ev = ev.reshape(n, m_new)
+
+            def score_flat(c, kk):
+                return newitems.lookahead_scores(
+                    kk, st, prob, cfg, stats, vals, stat=stat,
+                    num_samps=args.lookahead_samps,
+                    warmup=args.lookahead_warmup, n_base_samples=args.samps,
+                    cand=c, candidate_tile=args.lookahead_tile)
+
+            ev = sharded_candidate_scores(score_flat, n * m_new, mesh,
+                                          cand)(k).reshape(n, m_new)
         return (torch.where(prob.queryable, ev, torch.nan),
                 kname not in _MINIMIZE)
 
@@ -192,7 +207,8 @@ def main(argv=None):
     stats0 = stats_of(samps0)
 
     ckpt = LoopCheckpointer.for_problem(
-        args.checkpoint, prob_new0, real_new, every=20, era=SAMPLER_ERA)
+        args.checkpoint, prob_new0, real_new, every=20, era=SAMPLER_ERA,
+        write=lead)
     family = Family(
         nice_name=lambda kname: kname,
         score=score,
@@ -202,7 +218,8 @@ def main(argv=None):
     )
     per_key = drive_active(prob_new0, real_new, key_names, family,
                            (st0, stats0), args.seed, steps=args.steps,
-                           ckpt=ckpt, verbose=args.verbose)
+                           ckpt=ckpt, verbose=args.verbose and lead,
+                           mesh=mesh)
 
     results = {
         "_real": real,
@@ -219,7 +236,7 @@ def main(argv=None):
             for rec in recs
         ]
 
-    if args.save_results:
+    if args.save_results and lead:
         print(f"\nsaving results in '{args.save_results}'")
         results["_kind"] = "stan"
         results["_args"] = vars(args)

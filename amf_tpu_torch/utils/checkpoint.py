@@ -64,8 +64,9 @@ class LoopCheckpointer:
 
     def __init__(self, path: Optional[str], every: int = 20,
                  fingerprint: Optional[str] = None,
-                 era: Optional[str] = None):
+                 era: Optional[str] = None, write: bool = True):
         self.path = path
+        self.write = write
         self.every = max(every, 1)
         self.fingerprint = fingerprint
         self.era = era
@@ -86,25 +87,28 @@ class LoopCheckpointer:
             # trace); the stale file is moved aside and the run re-records
             stored_era = self._state.get("_era", "pre-era")
             if era is not None and self._state and stored_era != era:
-                stale = path + ".stale-era"
-                os.replace(path, stale)
-                sys.stderr.write(
-                    f"checkpoint {path} was written by engine era "
-                    f"{stored_era!r} but the current engine is {era!r}; "
-                    f"moved it to {stale} and re-recording from scratch\n"
-                )
                 self._state = {}
+                if write:
+                    stale = path + ".stale-era"
+                    os.replace(path, stale)
+                    sys.stderr.write(
+                        f"checkpoint {path} was written by engine era "
+                        f"{stored_era!r} but the current engine is {era!r}; "
+                        f"moved it to {stale} and re-recording from scratch\n"
+                    )
 
     @classmethod
     def for_problem(cls, path: Optional[str], problem, real,
-                    every: int = 20, era: Optional[str] = None
-                    ) -> "LoopCheckpointer":
+                    every: int = 20, era: Optional[str] = None,
+                    write: bool = True) -> "LoopCheckpointer":
         """A checkpointer keyed to a Problem; the fingerprint is computed
-        only when a path is given (it hashes the full matrix)."""
+        only when a path is given (it hashes the full matrix). ``write``
+        False resumes from the file and never writes it (the ranks of a
+        sharded run other than rank 0)."""
         fp = None
         if path:
             fp = problem_fingerprint(real, problem.rated, problem.test)
-        return cls(path, every=every, fingerprint=fp, era=era)
+        return cls(path, every=every, fingerprint=fp, era=era, write=write)
 
     def completed_records(self, key: str) -> Optional[List[tuple]]:
         """Records saved for a criterion in a previous run (or None)."""
@@ -146,7 +150,7 @@ class LoopCheckpointer:
         return problem, records, will_run
 
     def update(self, key: str, records: List[tuple], force: bool = False):
-        if not self.path:
+        if not self.path or not self.write:
             return
         self._state[key] = _slim(records)
         if self.fingerprint is not None:

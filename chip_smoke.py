@@ -39,6 +39,11 @@ hand-written kernel of them against its plain PyTorch version on the card:
     ``experiment`` runner's five arms of ``10x10_discrete2_d2`` (its bayes
     arm through the Cholesky kernel), the parity checks on what it wrote
     and on copies of committed experiment directories, and the text CLIs.
+  * candidate and chain sharding (``parallel/``): phase 3's tile through
+    ``sharded_candidate_scores`` on a world of one over NCCL and on two
+    ranks sharing the card over gloo (and over NCCL on two cards where
+    there are two), each rank's lane chains through the Cholesky kernel;
+    ``bayes_pmf --shard-candidates 1``; the sharded dry run.
 
     python3 chip_smoke.py
 
@@ -106,8 +111,8 @@ Phases (each raises on failure):
  18. one NUTS base chain at the MovieLens shape (d = 5, 100 draws after
      50 warmup), the same readings;
  19. NUTS lookahead tiles at the DrugBank shape from phase 17's chain:
-     exp-variance over 16 candidates x 5 values (80 lanes, 100 draws
-     after 50 warmup) and exp-entropy-est over 4 (30 after 15): every
+     exp-variance over 16 candidates x 5 values (80 lanes, 50 draws
+     after 25 warmup) and exp-entropy-est over 2 (30 after 15): every
      score finite,
      tile time, lockstep against the lanes' mean leapfrogs, syncs; and the
      profiler's split of one 80-lane transition (potential, RNG, syncs);
@@ -176,14 +181,34 @@ Phases (each raises on failure):
  34. ``check_experiment_dir`` on copies of the committed
      ``experiments/10x10_discrete2_d2`` (99 rows, hard_ok true) and
      ``experiments/drugbank-94x425`` (25 rows, hard_ok false).
+ 35. sharding at phase 3's width: (a) a world of one over NCCL in this
+     process scores phase 3's 32 candidates through
+     ``parallel.sharding.sharded_candidate_scores``: bit for bit phase 3's
+     scores where a rerun of phase 3's tile repeats them bit for bit, the
+     Gram-fed kernel launched 120 times, the plain version never; (b) two
+     ranks sharing the card over gloo (``parallel.mesh.launch``, gloo
+     named), 64 candidates in tiles of 32 so that each rank scores one of
+     the unsharded run's tiles: the scores to 1e-6 relative with the same
+     argmin, each rank's tile (a warm-up run, then the one read) through
+     the Gram-fed kernel alone, each rank's seconds, the gather's ms and
+     the seconds from the launch to the first collective; (c) the same
+     over NCCL on two cards where the host has two, else a line saying
+     it was skipped; (d) the ``bayes_pmf`` CLI on 24 x 30 with and without
+     ``--shard-candidates 1``: the same records.
+ 36. ``entry.dryrun_multichip(2)`` on two ranks sharing the card (gloo,
+     float64) against ``parallel.dryrun.dryrun_step`` unsharded in this
+     process: every family's scores to 1e-6 relative, 4 NUTS chains split
+     2 ways against 4 as lanes (draws, mode, adaptation) to 1e-5, the same
+     picks.
 Phases 31, 33 and 34 each run inside ``utils/profiling.device_trace`` (a
 Chrome trace of the card under build/chip_smoke_results/; phase 32 outside
 it, whose millions of launches take the profiler minutes to write), each
 phase with the Cholesky counts set to 0 just before and read just after;
 none imports matplotlib or JAX.
 The launch counts are reset before phases 3, 7, 8, 10, 11, each run of
-12 and each Gibbs exp-variance run of 30, and read after phases 4, 7, 8,
-10, 11, each run of 12 and each such run of 30, before the
+12, each Gibbs exp-variance run of 30 and each tile of 35 (in each rank's
+own process), and read after phases 4, 7, 8, 10, 11, each run of 12,
+each such run of 30 and each tile of 35, before the
 comparisons with the plain versions; phases 7, 8 and 10 also count the
 index builds (one a refit).
 The line before the last is the kernels' JSON; the last line is
@@ -300,13 +325,14 @@ DB_N, DB_M, DB_D, DB_SAMPS, DB_WARMUP, DB_CHAINS = 94, 425, 20, 100, 50, 4
 # after 50 warmup
 ML_D, ML_SAMPS, ML_WARMUP = 5, 100, 50
 # a lookahead tile at the DrugBank shape: 16 candidates x 5 values = 80
-# lanes (exp-variance; 32 until phases 31-34 came) at the CLI's lookahead
-# budget (100 draws after 50 warmup), and 4 candidates (exp-entropy-est; 8
-# until phases 22-27 came) at 30 after 15, so that the smoke keeps to its
-# time (its matrix-normal fit streams every draw at every sweep: PERF.md
-# §5; at 20 draws after 10 its fits give NaN)
-LA_CAND, LA_ENT_CAND = 16, 4
-LA_BUDGET = {"total-variance": (100, 50), "entropy-est": (30, 15)}
+# lanes (exp-variance; 32 until phases 31-34 came) at half the CLI's
+# lookahead budget, 50 draws after 25 warmup (100 after 50 until phases
+# 35-36 came), and 2 candidates (exp-entropy-est; 8 until phases 22-27
+# came, 4 until phases 35-36) at 30 after 15, so that the smoke keeps to
+# its time (its matrix-normal fit streams every draw at every sweep:
+# PERF.md §5; at 20 draws after 10 its fits give NaN)
+LA_CAND, LA_ENT_CAND = 16, 2
+LA_BUDGET = {"total-variance": (50, 25), "entropy-est": (30, 15)}
 # float64 card against CPU: 12 x 10, d = 3, 6 lanes, a chain of 20 warmup
 # and 10 draws, the same noise on both. One transition, and each draw of
 # the chain from the card's draw before it, agree to NUTS_F64_TOL; the
@@ -787,7 +813,10 @@ def kernel_device_ms(fn, name_part: str, reps: int = 10) -> float:
     torch.cuda.synchronize()
     # the profiler may drop a launch at the window's edge: average over those
     # it recorded. Now and then it records no kernel of a window at all:
-    # then the window is profiled again, up to three times
+    # then the window is profiled again, up to three times, and if it still
+    # records none, the ``reps`` calls are timed by CUDA events instead (the
+    # launches queued back to back, so the wrapper's host time hides behind
+    # the card's unless the kernel is shorter than it)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -798,7 +827,13 @@ def kernel_device_ms(fn, name_part: str, reps: int = 10) -> float:
         seen = sum(e.count for e in hits)
         if seen:
             break
-    check(0 < seen <= reps,
+    if not seen:
+        ms = cuda_ms(fn, reps)
+        print(f"kernel-device-ms: the profiler recorded no {name_part} "
+              f"kernel in 3 windows; {ms} ms a call by CUDA events",
+              flush=True)
+        return ms
+    check(seen <= reps,
           f"profiler saw {[(e.key, e.count) for e in hits]} for {name_part}")
     return sum(e.self_device_time_total for e in hits) / 1e3 / seen
 
@@ -1742,8 +1777,8 @@ def nuts_phases(device):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "amf_tpu_torch.run.bpmf", "--load-data",
-         str(data), "-D", "3", "-s", "2", "-S", "20", "--lookahead-samps",
-         "10", "--lookahead-warmup", "5", "--float32", "--checkpoint",
+         str(data), "-D", "3", "-s", "2", "-S", "10", "--lookahead-samps",
+         "6", "--lookahead-warmup", "4", "--float32", "--checkpoint",
          str(cli_ck), "--save-results", str(work / "stan_cli.pkl"),
          "pred-variance", "exp-variance"],
         cwd=str(ROOT), capture_output=True, text=True, timeout=600)
@@ -2765,6 +2800,182 @@ def results_phases(real, known):
     return out
 
 
+def sharding_phases(device, prob, pst, stats, pcfg, gcfg, cand,
+                    unsharded):
+    """Phases 35-36: candidate and chain sharding (``parallel/``) on the
+    card. ``unsharded`` is phase 3's tile of ``cand`` under seed 3."""
+    import numpy as np
+    import torch
+
+    from amf_tpu_torch import entry, types
+    from amf_tpu_torch.data.loaders import save_npz_schema
+    from amf_tpu_torch.data.synthetic import make_fake_data
+    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.ops import chol_kernel as ck
+    from amf_tpu_torch.parallel import dryrun, mesh, sharding
+    from amf_tpu_torch.run import bayes_pmf
+
+    out = {}
+    kw = dict(num_samps=LA_SAMPS, fit_budget=FIT_BUDGET,
+              n_base_samples=BASE_SAMPS, poly_ls=True)
+    draws = LA_SAMPS * gcfg.num_gibbs * 2  # B1 launches a tile
+
+    stamp("35")
+    # (a) a world of one over NCCL in this process against the unsharded
+    # tile: the same operations on the same inputs
+    again = bpmf_gibbs.exp_variance_scores(3, pst, prob, pcfg, gcfg, stats,
+                                           VALS, cand=cand, **kw)
+    deterministic = bool(torch.equal(again, unsharded))
+    m1 = mesh.make_mesh(1, device=device)
+    try:
+        check(m1.backend == mesh._backend_for(device, None),
+              f"a world of one on {m1.backend}")
+        ck.chol_gram_solve_sample_cuda.launches = 0
+        ck.chol_solve_sample_batch_minor.launches = 0
+        ck.chol_solve_sample_reference.calls = 0
+        t0 = time.perf_counter()
+        one = sharding.sharded_candidate_scores(
+            lambda c, s: bpmf_gibbs.exp_variance_scores(
+                s, pst, prob, pcfg, gcfg, stats, VALS, cand=c, **kw),
+            N * M, m1, cand)(3)[cand]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ck.launch_counts()
+    finally:
+        m1.close()
+    diff = (one - unsharded).abs().max().item()
+    out["world_of_one"] = dict(
+        bitwise=bool(torch.equal(one, unsharded)), max_abs_diff=diff,
+        unsharded_deterministic=deterministic, tile_s=wall, **counts)
+    print(json.dumps(dict(phase="shard_world_of_one", **out["world_of_one"])),
+          flush=True)
+    check(counts["gram_fed"] == draws and counts["plain"] == 0
+          and counts["s_given"] == 0,
+          f"the world of one's tile: {counts}, want {draws} Gram-fed "
+          "launches and no plain call")
+    # bit for bit where the unsharded tile is itself bitwise repeatable
+    check(torch.equal(one, unsharded) if deterministic
+          else diff <= 1e-6 * unsharded.abs().max().item(),
+          f"a world of one scores {diff} off the unsharded tile")
+
+    # (b) two ranks sharing the card over gloo, named explicitly: 64
+    # candidates in tiles of 32, so that each rank scores one of the
+    # unsharded run's tiles
+    cand64 = torch.nonzero(prob.queryable.flatten())[:2 * TILE, 0]
+    kw64 = dict(kw, candidate_tile=TILE)
+    plain64 = bpmf_gibbs.exp_variance_scores(3, pst, prob, pcfg, gcfg, stats,
+                                             VALS, cand=cand64, **kw64)
+
+    def host(x):
+        return dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).cpu()
+            for f in dataclasses.fields(x)})
+
+    inputs = (3, host(pst), prob.to(device="cpu"), pcfg, gcfg,
+              type(stats)(*(None if x is None else x.cpu() for x in stats)),
+              VALS, cand64.cpu(), kw64)
+
+    def on_ranks(n, backend, name):
+        t0 = time.perf_counter()
+        got = mesh.launch(dryrun.gibbs_tile_on_ranks, n, device.type, backend,
+                          *inputs)
+        wall = time.perf_counter() - t0
+        scores = torch.as_tensor(got["scores"], device=device)
+        rel = ((scores - plain64).abs() / plain64.abs()).max().item()
+        row = dict(ranks=n, backend=backend, launch_s=wall,
+                   max_rel_diff=rel, max_abs_diff=(
+                       scores - plain64).abs().max().item(),
+                   same_pick=int(scores.argmin()) == int(plain64.argmin()),
+                   per_rank=got["ranks"])
+        print(json.dumps(dict(phase=name, **row)), flush=True)
+        check(rel <= 1e-6 and row["same_pick"],
+              f"{name}: sharded scores {rel} off the unsharded ones")
+        check(all(r["gram_fed"] == draws and r["plain"] == 0
+                  and r["s_given"] == 0 for r in got["ranks"]),
+              f"{name}: a rank's tile did not go through the Gram-fed "
+              f"kernel alone: {got['ranks']}")
+        return row
+
+    out["gloo_shared_card"] = on_ranks(2, "gloo", "shard_gloo_two_ranks")
+    # (c) NCCL across two cards, where there are two
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out["nccl_two_cards"] = on_ranks(2, "nccl", "shard_nccl_two_cards")
+    else:
+        print(json.dumps(dict(phase="shard_nccl_two_cards", skipped=True,
+                              device_count=n_cards)), flush=True)
+
+    # (d) the bayes_pmf CLI with --shard-candidates 1 against it without
+    work = ROOT / "build" / "chip_smoke_shard"
+    work.mkdir(parents=True, exist_ok=True)
+    real, known, _ = make_fake_data(num_users=24, num_items=30, rank=3,
+                                    mask_type=0.3,
+                                    rng=np.random.default_rng(5))
+    real = np.clip(np.round(real - real.mean() + 3.0), 1.0, 5.0)
+    data = work / "small.npz"
+    save_npz_schema(str(data), {"_real": real, "_known": known,
+                                "_rating_vals": np.asarray(VALS)})
+    argv = ["--load-data", str(data), "-D", "3", "-s", "3", "-S", "16",
+            "--lookahead-samps", "4", "--test-set", "0.95", "--float32",
+            "--no-verbose", "--device", device.type]
+    recs = {}
+    for flag in ([], ["--shard-candidates", "1"]):
+        path = work / f"cli{len(flag)}.pkl"
+        t0 = time.perf_counter()
+        bayes_pmf.main(argv + flag + ["--save-results", str(path),
+                                      "exp-variance"])
+        with open(path, "rb") as f:
+            recs[len(flag)] = ([r[:3] for r in pickle.load(f)["exp-variance"]],
+                               time.perf_counter() - t0)
+    (plain_recs, plain_s), (shard_recs, shard_s) = recs[0], recs[2]
+    out["cli"] = dict(records=len(plain_recs), plain_s=plain_s,
+                      sharded_s=shard_s,
+                      same_picks=[r[2] for r in plain_recs]
+                      == [r[2] for r in shard_recs],
+                      max_err_diff=max(abs(a[1] - b[1]) for a, b in
+                                       zip(plain_recs, shard_recs)))
+    print(json.dumps(dict(phase="shard_bayes_pmf_cli", **out["cli"])),
+          flush=True)
+    check(len(plain_recs) == 3 and out["cli"]["same_picks"]
+          and out["cli"]["max_err_diff"] <= 1e-5,
+          f"bayes_pmf --shard-candidates 1: {plain_recs} against "
+          f"{shard_recs}")
+
+    stamp("36")
+    # the dry run on two ranks sharing the card (gloo) against the same
+    # paths unsharded in this process, float64
+    t0 = time.perf_counter()
+    got = entry.dryrun_multichip(2, device=device.type, backend="gloo")
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = dryrun.dryrun_step(None, chains=4, device=device)
+    plain_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        fin = np.isfinite(b)
+        return float(np.max(np.abs(a[fin] - b[fin])
+                            / np.maximum(np.abs(b[fin]), 1e-30)))
+
+    fams = {k: rel(got[k]["scores"], want[k]["scores"])
+            for k in ("vn", "gibbs", "nuts", "newitems", "rc")}
+    chains = {k: rel(got["chains"][k], want["chains"][k])
+              for k in ("U", "lp__", "mode_q", "adapt_inv_mass")}
+    out["dryrun"] = dict(
+        launch_s=dry_s, unsharded_s=plain_s, setup_s=got["setup_s"],
+        scores_max_rel_diff=fams, chains_max_rel_diff=chains,
+        same_pick=got["vn"]["pick"] == want["vn"]["pick"],
+        same_loop_picks=[r[2] for r in got["loop"]]
+        == [r[2] for r in want["loop"]])
+    print(json.dumps(dict(phase="dryrun_multichip_2", **out["dryrun"])),
+          flush=True)
+    check(out["dryrun"]["same_pick"] and out["dryrun"]["same_loop_picks"]
+          and max(fams.values()) <= 1e-6 and max(chains.values()) <= 1e-5,
+          f"the sharded dry run parts from the unsharded one: {out['dryrun']}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "amf_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: amf_tpu_torch/ is not beside this script; run it "
@@ -2860,7 +3071,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"MAP fit ({int(info.n_iters)} proposals) + {BASE_SAMPS}-sample "
           f"base chain s {time.perf_counter() - t0:.2f}", flush=True)
-    cand = torch.nonzero(prob.queryable.flatten())[:TILE, 0]
+    cand = cand32 = torch.nonzero(prob.queryable.flatten())[:TILE, 0]
 
     def tile(dtype_pst, dtype_prob, dtype_stats, kernel=True):
         return bpmf_gibbs.exp_variance_scores(
@@ -3584,6 +3795,9 @@ def main() -> int:
                        vn["loops"]["vn"]["pred-variance"])
     # ---- 31-34. the result tools, the experiment runner, parity
     results = results_phases(real, known)
+    # ---- 35-36. candidate and chain sharding
+    shard = sharding_phases(device, prob, pst, stats, pcfg, gcfg, cand32,
+                            scores)
     stamp("end")
 
     def wide_row(row, launches, src):
@@ -3653,6 +3867,14 @@ def main() -> int:
             "get_criteria": results["get_criteria"]["gram_fed"],
             "experiment_bayes_arm": results["experiment"]["arm_counts"][
                 "bayes_pmf"]["gram_fed"]},
+        # phase 35: the world of one's tile and each rank's tile (the read
+        # run), each counted from 0 just before it
+        "sharding_phases_launches": {
+            "world_of_one": shard["world_of_one"]["gram_fed"],
+            **{f"{k}_per_rank": [int(r["gram_fed"]) for r in
+                                 shard[k]["per_rank"]]
+               for k in ("gloo_shared_card", "nccl_two_cards")
+               if k in shard}},
         "max_abs_err": max(r["max_abs_err"] for r in gram),
         **{k: gram_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "gram_to_x_ms", "gram_to_x_assembled_ms")},

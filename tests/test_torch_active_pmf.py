@@ -142,21 +142,6 @@ def test_cli_runs_on_the_cpu_saves_and_reloads_its_model(tmp_path, capsys):
         r[:3] for r in first["pred-variance"]]
 
 
-# --scan and --scan-evals are ported; neither lifts the refusal of
-# --shard-candidates
-@pytest.mark.parametrize("flag", [["--scan-evals", "--shard-candidates", "2"],
-                                  ["--scan", "--scan-evals",
-                                   "--shard-candidates", "2"],
-                                  ["--shard-candidates", "2"],
-                                  ["--scan", "--shard-candidates", "2"]])
-def test_cli_unported_flags_exit_with_a_reason(flag):
-    from amf_tpu_torch.run import active_pmf
-
-    with pytest.raises(SystemExit) as exc:
-        active_pmf.main(["--device", "cpu", *flag, "pred"])
-    assert "not ported" in str(exc.value.code)
-
-
 def test_entry_step_matches_the_jax_step_on_converted_inputs():
     """``__graft_entry__.entry()``'s step and the port's, both in float64
     on the JAX package's inputs; and the port's own entry on the CPU."""

@@ -262,9 +262,12 @@ def test_matrix_normal_mle_and_entropy_match_jax(chain):
                                         jst.mean_rating, True))
 
 
-def test_samples_refuse_a_chain_mesh(case):
+def test_samples_take_noise_or_a_chain_mesh_not_both(case):
+    """Replayed noise covers every chain, so it cannot be split over ranks
+    (the sharded chains are held to chains as lanes in
+    test_torch_parallel.py)."""
     tprob = case[3]
     cfg = th.HMCConfig(latent_d=D)
     st = th.init_state(tprob, cfg, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.samples(0, st, tprob, cfg, 4, chain_mesh=object())
+    with pytest.raises(ValueError, match="not both"):
+        th.samples(0, st, tprob, cfg, 4, chain_mesh=object(), noise=object())

@@ -67,15 +67,6 @@ def test_run_active_gibbs_matches_jax_schema(data):
                 == [r[0] for r in jres["pred-variance"]])
 
 
-def test_run_active_gibbs_refuses_unported_options(data):
-    real, known, _ = data
-    prob = ttypes.problem_from_dense(real, known, dtype=torch.float64,
-                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.run_active_gibbs(prob, real, ["random"], device="cpu",
-                               mesh=object())
-
-
 @pytest.mark.parametrize("fit_type", [("mini-valid", 10, 4), ("lbfgs", 50)])
 def test_run_active_gibbs_takes_every_fit_type(data, fit_type):
     """The loop's initial fit runs the 'mini-valid' and 'lbfgs' fit types
@@ -117,16 +108,3 @@ def test_bayes_pmf_cli(data_file, tmp_path):
     assert res["_kind"] == "bayes"
     assert len(res["pred-variance"]) == 2 and len(res["exp-variance"]) == 2
     assert res["_rating_vals"] == tuple(float(v) for v in range(6))
-
-
-# --scan and --scan-evals are ported; neither lifts the refusal of
-# --shard-candidates
-@pytest.mark.parametrize("flag", [["--scan", "--shard-candidates", "2"],
-                                  ["--shard-candidates", "2"],
-                                  ["--scan-evals", "--shard-candidates", "2"]])
-def test_bayes_pmf_cli_unported_flags_exit(data_file, flag):
-    from amf_tpu_torch.run import bayes_pmf
-
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        bayes_pmf.main(["--load-data", data_file, "--no-save-results",
-                        *flag, "random"])

@@ -43,6 +43,8 @@ SLICE = [
     "amf_tpu_torch.run.compare_firsts", "amf_tpu_torch.run.generate",
     "amf_tpu_torch.run.choose_training", "amf_tpu_torch.run.get_samples",
     "amf_tpu_torch.run.get_criteria", "amf_tpu_torch.run.experiment",
+    "amf_tpu_torch.parallel.mesh", "amf_tpu_torch.parallel.sharding",
+    "amf_tpu_torch.parallel.dryrun", "amf_tpu_torch._native",
 ]
 
 

@@ -280,11 +280,3 @@ def test_bpmf_newitems_cli_caches_and_resumes(data_file, case, tmp_path,
     said = capsys.readouterr().out
     assert "loaded initial fit" in said and "resumed at step 1" in said
     assert [r[:3] for r in again["random"]] == [r[:3] for r in first["random"]]
-
-
-def test_bpmf_newitems_cli_refuses_sharding(data_file):
-    from amf_tpu_torch.run import bpmf_newitems
-
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        bpmf_newitems.main(["--load-data", data_file, "--no-save-results",
-                            "--shard-candidates", "2", "random"])

@@ -156,10 +156,7 @@ def test_run_active_rc_picks_match_jax(case):
     assert all(pool[i, j] for i, j in picks)
 
 
-def test_run_active_rc_refuses_a_mesh_and_unknown_keys(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_active_rc(case["tprob"], case["real"], ["ge-1"], mesh=object(),
-                      device="cpu")
+def test_run_active_rc_refuses_unknown_keys(case):
     with pytest.raises(ValueError, match="unknown RC selector"):
         run_active_rc(case["tprob"], case["real"], ["nope"], device="cpu")
 
@@ -193,11 +190,3 @@ def test_active_rc_cli_with_checkpoint(data_file, tmp_path, capsys):
     again = active_rc.main(argv[:-3] + ["--no-save-results", "random"])
     assert "resumed at step 1" in capsys.readouterr().out
     assert [r[:3] for r in again["random"]] == [r[:3] for r in first["random"]]
-
-
-def test_active_rc_cli_refuses_sharding(data_file):
-    from amf_tpu_torch.run import active_rc
-
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        active_rc.main(["--load-data", data_file, "--no-save-results",
-                        "--shard-candidates", "2", "ge-1"])

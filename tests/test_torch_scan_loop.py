@@ -252,7 +252,7 @@ def test_cli_scan_writes_the_host_layout(data_file, tmp_path, cli, extra):
         assert all(r[3] is not None for r in scan[k][1:])
 
 
-def test_cli_scan_keeps_the_refusals(data_file):
+def test_cli_scan_refuses_fit_sigmas_and_warm_adapt(data_file):
     from amf_tpu_torch.run import active_pmf, bpmf
 
     with pytest.raises(SystemExit):
@@ -261,6 +261,3 @@ def test_cli_scan_keeps_the_refusals(data_file):
     with pytest.raises(SystemExit):
         bpmf.main(["--load-data", data_file, "--device", "cpu", "--scan",
                    "--warm-adapt", "pred-variance"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        bpmf.main(["--load-data", data_file, "--device", "cpu",
-                   "--shard-candidates", "2", "pred-variance"])

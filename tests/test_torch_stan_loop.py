@@ -173,14 +173,11 @@ def test_run_active_stan_binary_chains_and_warm_adapt(base):
     assert all(0.0 <= e <= 1.0 for e in errs)
 
 
-def test_run_active_stan_refuses_a_mesh(base):
+def test_run_active_stan_refuses_unknown_criteria(base):
     from amf_tpu_torch.active.stan_loop import run_active_stan
 
     prob = ttypes.problem_from_dense(base["real"], base["known"],
                                      dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_active_stan(prob, base["real"], ["random"], mesh=object(),
-                        device="cpu")
     with pytest.raises(ValueError, match="unknown stan criterion"):
         run_active_stan(prob, base["real"], ["nope"], device="cpu")
 
@@ -216,16 +213,3 @@ def test_bpmf_cli_on_the_cpu_with_checkpoint(data_file, tmp_path, capsys):
     again = bpmf.main(argv[:-2] + ["--no-save-results", "random"])
     assert "resumed at step 1" in capsys.readouterr().out
     assert [r[:3] for r in again["random"]] == [r[:3] for r in first["random"]]
-
-
-# --scan and --scan-evals are ported; neither lifts the refusal of
-# --shard-candidates
-@pytest.mark.parametrize("flag", [["--scan", "--shard-candidates", "2"],
-                                  ["--scan-evals", "--shard-candidates", "2"],
-                                  ["--shard-candidates", "2"]])
-def test_bpmf_cli_unported_flags_exit(data_file, flag):
-    from amf_tpu_torch.run import bpmf
-
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        bpmf.main(["--load-data", data_file, "--no-save-results", *flag,
-                   "random"])
