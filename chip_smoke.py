@@ -44,6 +44,10 @@ hand-written kernel of them against its plain PyTorch version on the card:
     ranks sharing the card over gloo (and over NCCL on two cards where
     there are two), each rank's lane chains through the Cholesky kernel;
     ``bayes_pmf --shard-candidates 1``; the sharded dry run.
+  * the port's bench (``python -m amf_tpu_torch.bench``) in this process:
+    its rows (the Gibbs headline through the Cholesky kernel, with its
+    numpy pool baseline; the PMF-refit row through the value+gradient
+    kernel; the vn rows) and its one JSON line.
 
     python3 chip_smoke.py
 
@@ -57,16 +61,17 @@ Phases (each raises on failure):
      other d, with and without centre and cells; and the time from the
      Gram products to x the earlier way (assembly in PyTorch, then the
      S-given entry) beside the Gram-fed one;
-  3. the f32 Gibbs lookahead tile: finite scores, the Gram-fed kernel
-     launched 120 times a tile, plain unused;
+  3. the f32 Gibbs lookahead tile, the first timed tile of phase 37's
+     headline (its rates are the bench's): finite scores, the Gram-fed
+     kernel launched 120 times a tile, plain unused; the profile of a tile;
   4. the active loop (run_active_gibbs), 3 records on a 64-cell pool;
   5. the same tile in f64 through the kernel and through the plain version;
   6. value+gradient kernel vs plain version, both layouts, f32 and bf16, at
      L=128 lanes and at ragged shapes, with times; the variant that leaves
      the factors in global memory at d=32; the value bit for bit over two
      runs;
-  7. the bench's lane-blocked refit: 1024 candidates in 8 tiles, bf16 and
-     f32, and the f32 kernel tile vs the plain refit;
+  7. the bench's lane-blocked refit: 1024 candidates in 8 tiles, bf16 (phase
+     37's refit row) and f32, and the f32 kernel tile vs the plain refit;
   8. the add_rmse_boosts CLI on a 256-cell pool (2 tiles, 200 refit steps),
      and the profile of one such tile (one index build, no mask scan);
   9. line-coefficient kernel vs plain version, f32 and bf16, on an index of
@@ -95,10 +100,10 @@ Phases (each raises on failure):
      version at d = 48 at these lane counts: B1 at both row draws, B4 at
      128 lanes, B2, B3 and B5 at 8);
  13. the vn lookahead, bench.py's vn workload (total-variance, 50 + 50
-     refit steps, 8 nodes, tiles of 64 candidates, f32): every candidate
-     with cov_param="chol", one 8-candidate tile with "psd-project" and
-     its host-side split (eigh, slogdet, autograd, the lane refit), a
-     4-candidate chol tile's device split; every score finite;
+     refit steps, 8 nodes, tiles of 64 candidates, f32): phase 37's vn
+     rows (every candidate with cov_param="chol", one 8-candidate tile
+     with "psd-project"), every score finite; a 4-candidate psd-project
+     tile's host-side split (eigh, slogdet, autograd, the lane refit);
  14. float64 tiles of total-variance and pred-entropy-bound-approx on the
      card and on the CPU from the same inputs and lane noise, <= 1e-8;
  15. run_active_pmf: 2 records for vn (pred-variance, total-variance) and 2
@@ -200,14 +205,27 @@ Phases (each raises on failure):
      process: every family's scores to 1e-6 relative, 4 NUTS chains split
      2 ways against 4 as lanes (draws, mode, adaptation) to 1e-5, the same
      picks.
+ 37. (run after phase 1, before 2) the port's bench,
+     ``amf_tpu_torch/bench.py``, in this process through ``bench.run``:
+     the headline at full shape (the MAP fit, the 128-sample base chain, a
+     warm tile, 8 timed tiles of 32 candidates, 1 and then 3 tiles for the
+     device-only rate) with its numpy pool baseline, the refit row and the
+     chol vn row in full, the psd-project row cut to one tile of 8
+     candidates; its line printed (``bench-line``), parsed and checked:
+     platform cuda, the card's nvidia-smi line, every rate non-null and
+     positive, no secondary fault, vs_baseline = value / pool to its
+     rounding; the Gram-fed kernel launched once a row draw (512 in the
+     base chain, 120 a headline tile) and the plain version never, the
+     refit row through the bf16 lane-blocked value+gradient kernel alone
+     (one index build a refit tile).
 Phases 31, 33 and 34 each run inside ``utils/profiling.device_trace`` (a
 Chrome trace of the card under build/chip_smoke_results/; phase 32 outside
 it, whose millions of launches take the profiler minutes to write), each
 phase with the Cholesky counts set to 0 just before and read just after;
 none imports matplotlib or JAX.
-The launch counts are reset before phases 3, 7, 8, 10, 11, each run of
+The launch counts are reset before phases 37, 7, 8, 10, 11, each run of
 12, each Gibbs exp-variance run of 30 and each tile of 35 (in each rank's
-own process), and read after phases 4, 7, 8, 10, 11, each run of 12,
+own process), and read after phases 37, 4, 7, 8, 10, 11, each run of 12,
 each such run of 30 and each tile of 35, before the
 comparisons with the plain versions; phases 7, 8 and 10 also count the
 index builds (one a refit).
@@ -300,16 +318,15 @@ PEAK_FLOPS_S = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
 WIDE_D = 48
 WIDE_GIBBS_CAND, WIDE_GIBBS_BASE, WIDE_GIBBS_LANE = 2, 16, 4
 WIDE_REFIT_LANES = 8
-# the vn workload of bench.py:184-250: 24 x 24, rank and d 2, mask 0.2,
-# PMF fit 200 steps, base KL fit 100, lane refits 50 + 50 steps, 8
-# Gauss-Legendre nodes, tiles of 64 candidates, total-variance, float32
-VN_N, VN_D, VN_MASK = 24, 2, 0.2
-VN_PMF_STEPS, VN_FIT_STEPS, VN_REFIT_STEPS = 200, 100, 50
-VN_NODES, VN_TILE = 8, 64
-# one psd-project tile of 8 candidates (64 until phases 22-27 came: ~44 s,
-# 97 % eigh; 16 until phases 31-34 came), so that the smoke keeps to its
-# time
-VN_PSD_CAND = 8
+# the vn workload of bench.py:184-250 (amf_tpu_torch/bench.py's CARD): 24 x
+# 24, rank and d 2, mask 0.2, PMF fit 200 steps, base KL fit 100, lane
+# refits 50 + 50 steps, 8 Gauss-Legendre nodes, tiles of 64 candidates,
+# total-variance, float32
+VN_N, VN_D, VN_REFIT_STEPS, VN_NODES, VN_TILE = 24, 2, 50, 8, 64
+# the bench's psd-project row cut to one tile of 8 candidates (64 until
+# phases 22-27 came: ~44 s, 97 % eigh; 16 until phases 31-34 came), so that
+# the smoke keeps to its time; its host-side split on 4
+VN_PSD_CAND, VN_SPLIT_CAND = 8, 4
 VN_MN_N = 12
 # card against CPU in float64: the same inputs and lane noise, the same
 # operations in other kernels' orders; tiles of 8 and 4 candidates
@@ -786,14 +803,15 @@ def device_split(fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side events only: a CPU op's own device time repeats its kernels'
+    # device-side events only: a CPU op's own device time repeats its
+    # kernels'. The events (~10^4 a tile) are averaged once
+    averages = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
+                      for e in averages
                       if e.device_type == DeviceType.CUDA),
                      key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    nonzero = sum(e.count for e in prof.key_averages()
-                  if e.key == "aten::nonzero")
+    nonzero = sum(e.count for e in averages if e.key == "aten::nonzero")
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 busy_share=busy / wall_ms, nonzero_calls=nonzero,
                 device_launches=sum(r[2] for r in kernels),
@@ -1121,48 +1139,6 @@ def wide_main_paths(device, prob, real, knowable, rng, work):
     return out
 
 
-def vn_problem(device, dtype, n=VN_N, seed=1):
-    """The bench's vn workload (bench.py:184-250): a 24 x 24 problem of
-    rank 2, mask 0.2, its PMF fit (200 steps) on ``device``."""
-    import numpy as np
-    from amf_tpu_torch import types
-    from amf_tpu_torch.data.synthetic import make_fake_data
-    from amf_tpu_torch.models import pmf
-    from amf_tpu_torch.utils.rng import generator
-
-    rng = np.random.default_rng(seed)
-    real, known, _ = make_fake_data(num_users=n, num_items=n, rank=VN_D,
-                                    mask_type=VN_MASK, rng=rng)
-    prob = types.problem_from_dense(real, known, dtype=dtype, device=device)
-    pcfg = pmf.PMFConfig(latent_d=VN_D, max_fit_steps=VN_PMF_STEPS)
-    pst = pmf.init_state(generator(0, device), n, n, pcfg, prob, dtype=dtype,
-                         device=device)
-    pst, _ = pmf.fit(pst, prob, pcfg)
-    return real, prob, pcfg, pst
-
-
-def vn_approx(pst, prob, cov_param, device):
-    """The bench's base approximation: a random covariance fit for 100
-    steps."""
-    from amf_tpu_torch.models import vnormal
-    from amf_tpu_torch.utils.rng import fold_in, generator
-
-    vcfg = vnormal.VNConfig(latent_d=VN_D, max_fit_steps=VN_FIT_STEPS,
-                            cov_param=cov_param)
-    ast = vnormal.initialize_approx(
-        pst, vcfg, generator=generator(fold_in(0, 1), device))
-    return vcfg, vnormal.fit_normal(ast, pst, prob, vcfg)[0]
-
-
-def vn_lookahead_config(**kw):
-    from amf_tpu_torch.active.lookahead import LookaheadConfig
-
-    return LookaheadConfig(rating_values=(), refit_lookahead=True,
-                           pmf_refit_steps=VN_REFIT_STEPS,
-                           approx_refit_steps=VN_REFIT_STEPS,
-                           n_integration_nodes=VN_NODES, **kw)
-
-
 @contextlib.contextmanager
 def timed_calls(targets):
     """Host wall time of every call of each (module, attribute) in
@@ -1216,12 +1192,14 @@ def vn_split(fn):
                                  for k, v in totals.items()})
 
 
-def vn_phases(device):
+def vn_phases(device, bench_rows):
     """Phases 13-16: the variational (ActivePMF) path, which runs no
     hand-written kernel (its linear algebra is PyTorch's): the bench's vn
-    sweep, card against CPU in float64, the active loops, the entry step."""
+    rows (phase 37's ``bench_rows``), card against CPU in float64, the
+    active loops, the entry step."""
     import numpy as np
     import torch
+    from amf_tpu_torch import bench
     from amf_tpu_torch.active import criteria, lookahead
     from amf_tpu_torch.active.loop import run_active_pmf
     from amf_tpu_torch.entry import entry
@@ -1232,54 +1210,42 @@ def vn_phases(device):
     f32 = torch.float32
 
     stamp("13")
-    # ---- 13. the bench's vn sweep: chol all tiles, psd-project one tile
-    real, prob, pcfg, pst = vn_problem(device, f32)
-    cand = torch.nonzero(prob.queryable.flatten())[:, 0]
-    lcfg = vn_lookahead_config(candidate_tile=VN_TILE)
+    # ---- 13. the bench's vn rows (timed in phase 37: chol over every
+    # candidate, psd-project over one tile) and where a tile's time goes
     sweep = {}
     for cov_param in ("chol", "psd-project"):
-        vcfg, ast = vn_approx(pst, prob, cov_param, device)
-        adapter = lookahead.vn_adapter(vcfg)
-
-        def run(c, seed=2, _a=ast, _ad=adapter):
-            return lookahead.lookahead_scores(crit, pst, _a, prob, seed, pcfg,
-                                              _ad, lcfg, cand=c)
-
-        run(cand[:2])  # warm
-        split = None
-        if cov_param == "chol":
-            part = cand
-            scores, tile_ms = timed_ms(lambda: run(part))
-        else:
-            # one tile, timed under the host-side profiler that splits it
-            part = cand[:VN_PSD_CAND]
-            box = []
-            split = vn_split(lambda: box.append(run(part)))
-            scores, tile_ms = box[0], split["wall_ms"]
+        bench_row = bench_rows[cov_param]
+        scores = bench_row["scores"]
         finite = int(torch.isfinite(scores).sum())
         row = sweep[cov_param] = dict(
-            candidates=len(part), tiles=-(-len(part) // VN_TILE),
-            lanes_a_tile=min(len(part), VN_TILE) * VN_NODES,
-            s=tile_ms / 1e3,
-            candidates_per_s=1e3 * len(part) / tile_ms, finite=finite,
-            scores_min=scores.min().item(), scores_max=scores.max().item())
-        check(finite == len(part),
+            candidates=bench_row["candidates"], tiles=bench_row["tiles"],
+            lanes_a_tile=bench_row["tile"] * VN_NODES, s=bench_row["s"],
+            warm_s=bench_row["warm_s"], candidates_per_s=bench_row["rate"],
+            finite=finite, scores_min=scores.min().item(),
+            scores_max=scores.max().item())
+        check(finite == bench_row["candidates"] == len(scores),
               f"vn {cov_param} f32 scores not all finite: {row}")
-        if split is not None:
-            row["split"] = split
-        else:
-            # the device's share of a 4-candidate tile (a psd-project
-            # tile's ~10^5 launches a candidate are too many to trace)
-            row["device_split_4_candidates"] = device_split(
-                lambda: run(cand[:4]), top=10)
+        if cov_param == "psd-project":
+            # a smaller tile under the host-side profiler that splits it. (A
+            # chol tile's device split is no longer taken: its ~23,000
+            # launches kept the profiler longer than the tile; PERF.md keeps
+            # its last reading.)
+            prob, pcfg, pst, vcfg, ast, lcfg = bench_row["state"]
+            part = torch.nonzero(prob.queryable.flatten())[:VN_SPLIT_CAND, 0]
+            row[f"split_{VN_SPLIT_CAND}_candidates"] = vn_split(
+                lambda: lookahead.lookahead_scores(
+                    crit, pst, ast, prob, 2, pcfg, lookahead.vn_adapter(vcfg),
+                    lcfg, cand=part))
         print(json.dumps(dict(phase="vn_lookahead", cov_param=cov_param,
                               **row)), flush=True)
     out["sweep"] = sweep
 
     stamp("14")
     # ---- 14. card against CPU, float64, the same inputs and lane noise
-    real64, prob64, pcfg64, pst64 = vn_problem(device, torch.float64)
-    vcfg64, ast64 = vn_approx(pst64, prob64, "psd-project", device)
+    real64, prob64, pcfg64, pst64 = bench.vn_problem(
+        bench.CARD, device, torch.float64)
+    vcfg64, ast64 = bench.vn_approx(bench.CARD, pst64, prob64,
+                                   "psd-project", device)
     adapter = lookahead.vn_adapter(vcfg64)
     q = torch.nonzero(prob64.queryable.flatten())[:, 0]
 
@@ -1298,7 +1264,7 @@ def vn_phases(device):
                              k * k, torch.float64, "cpu").reshape(
             n_cand, nodes, k, k)
         args = (criteria.KEY_FUNCS[name],)
-        lc = vn_lookahead_config()
+        lc = bench.vn_lookahead_config(bench.CARD)
         card, card_ms = timed_ms(lambda: lookahead.lookahead_scores(
             *args, pst64, ast64, prob64, 5, pcfg64, adapter, lc, cand=c,
             noise=noise))
@@ -1325,7 +1291,7 @@ def vn_phases(device):
     for model, keys, steps, n in (
             ("vn", ["pred-variance", "total-variance"], 2, VN_N),
             ("mn", ["pred-variance", "total-variance-approx"], 2, VN_MN_N)):
-        lreal, lprob, _, _ = vn_problem(device, f32, n=n)
+        lreal, lprob, _, _ = bench.vn_problem(bench.CARD, device, f32, n=n)
         t0 = time.perf_counter()
         res = run_active_pmf(
             lprob, lreal, keys, latent_d=VN_D, refit_lookahead=True,
@@ -2338,7 +2304,7 @@ def scan_phases(device, prob, real, known, vn_loop):
     version."""
     import numpy as np
     import torch
-    from amf_tpu_torch import types
+    from amf_tpu_torch import bench, types
     from amf_tpu_torch.active import scan_loop
     from amf_tpu_torch.active.gibbs_loop import run_active_gibbs
     from amf_tpu_torch.active.loop import run_active_pmf
@@ -2403,7 +2369,7 @@ def scan_phases(device, prob, real, known, vn_loop):
         return row
 
     # vn: phase 15's loop, pred-variance, from the same state and seeds
-    lreal, lprob, _, _ = vn_problem(device, f32)
+    lreal, lprob, _, _ = bench.vn_problem(bench.CARD, device, f32)
     vn_kw = dict(latent_d=VN_D, refit_lookahead=True, seed=0, model="vn",
                  lookahead_budget=VN_REFIT_STEPS, lookahead_tile=VN_TILE,
                  cov_param="chol", dtype=f32, device=device)
@@ -2976,6 +2942,80 @@ def sharding_phases(device, prob, pst, stats, pcfg, gcfg, cand,
     return out
 
 
+def bench_phase(device, card):
+    """Phase 37: the port's bench (``amf_tpu_torch/bench.py``) in this
+    process, through ``bench.run`` at its card workload with the
+    psd-project row cut to one tile of VN_PSD_CAND candidates: its line
+    parsed and checked, the launches of its rows counted from 0. Returns
+    (the line, the rows, the counts)."""
+    from amf_tpu_torch import bench
+    from amf_tpu_torch.ops import chol_kernel as ck
+    from amf_tpu_torch.ops import pmf_kernels as pk
+
+    ck.chol_gram_solve_sample_cuda.launches = 0
+    ck.chol_solve_sample_batch_minor.launches = 0
+    ck.chol_solve_sample_reference.calls = 0
+    pk.pmf_value_grad_cuda.launches.clear()
+    pk.pmf_value_grad_cuda.variants.clear()
+    pk.pmf_value_grad_plain.calls = 0
+    index_before = pk.rated_index.calls
+    t0 = time.perf_counter()
+    line, rows = bench.run(bench.CARD, device, psd_cap=VN_PSD_CAND)
+    wall = time.perf_counter() - t0
+    counts = dict(b1=ck.launch_counts(),
+                  b2={"/".join(k): v
+                      for k, v in pk.pmf_value_grad_cuda.launches.items()},
+                  b2_global=pk.pmf_value_grad_cuda.variants["global"],
+                  b2_plain=pk.pmf_value_grad_plain.calls,
+                  index_builds=pk.rated_index.calls - index_before)
+    text = json.dumps(line)
+    print("bench-line " + text, flush=True)
+    parsed = json.loads(text)
+    head, refit = rows["gibbs"], rows.get("refit")
+    print(json.dumps(dict(
+        phase="bench", wall_s=wall, **counts,
+        rows={k: {f: v for f, v in r.items()
+                  if isinstance(v, (int, float)) or v is None}
+              for k, r in rows.items() if isinstance(r, dict)})),
+        flush=True)
+    check(parsed == line and parsed["platform"] == "cuda"
+          and parsed["device"] == card, f"the bench's line: {text}")
+    check("secondary_bench_faults" not in parsed,
+          f"a bench row faulted: {parsed.get('secondary_bench_faults')}")
+    rates = ("value", "pool_scores_per_sec", "device_only_scores_per_sec",
+             "vn_total_variance_scores_per_sec",
+             "vn_total_variance_chol_scores_per_sec",
+             "pmf_refit_kernel_scores_per_sec", "vs_baseline")
+    check(all(parsed[k] is not None and parsed[k] > 0 for k in rates),
+          f"a bench rate null or not positive: {text}")
+    value, pool = parsed["value"], parsed["pool_scores_per_sec"]
+    # vs_baseline is round(value / pool, 1) before value and pool were
+    # rounded (to 2 and 4 places)
+    slack = 0.05 + value / pool * (0.005 / value + 0.00005 / pool) + 1e-9
+    check(abs(parsed["vs_baseline"] - value / pool) <= slack,
+          f"vs_baseline {parsed['vs_baseline']} against {value} / {pool}")
+    # the headline: one launch of the Gram-fed kernel a row draw (a U and a
+    # V draw a sweep, 2 sweeps a round): 512 in the 128-round base chain,
+    # 120 a tile (30 rounds), never the plain version; the refit row: the
+    # lane-blocked bf16 value+gradient kernel alone, one index build a
+    # refit tile
+    num_gibbs = head["state"][3].num_gibbs
+    draws, base_draws = (2 * num_gibbs * LA_SAMPS,
+                         2 * num_gibbs * BASE_SAMPS)
+    check(counts["b1"]["gram_fed"] == base_draws + draws * head["tiles_run"]
+          and counts["b1"]["s_given"] == 0 and counts["b1"]["plain"] == 0,
+          f"the headline's base chain and {head['tiles_run']} tiles "
+          f"launched {counts['b1']}: want {base_draws} + {draws} a tile "
+          "Gram-fed launches and no plain call")
+    check(set(counts["b2"]) == {"L,d,rows/torch.bfloat16"}
+          and counts["b2_plain"] == 0 and counts["b2_global"] == 0,
+          f"the refit row's value+gradient launches: {counts}")
+    check(counts["index_builds"] == 2 * refit["tiles"],
+          f"{counts['index_builds']} index builds for two sweeps of "
+          f"{refit['tiles']} refit tiles")
+    return line, rows, counts
+
+
 def main() -> int:
     if not (ROOT / "amf_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: amf_tpu_torch/ is not beside this script; run it "
@@ -3000,7 +3040,6 @@ def main() -> int:
     from amf_tpu_torch.ops import pmf_kernels as pk
     from amf_tpu_torch.run import add_rmse_boosts
     from amf_tpu_torch.utils.platform import resolve_device
-    from amf_tpu_torch.utils.rng import generator
 
     # ---- 1. environment and build
     device = resolve_device("cuda")
@@ -3040,6 +3079,13 @@ def main() -> int:
     print(f"kernel build+load s {time.perf_counter() - t0:.1f} (each nvcc, "
           f"side by side: {json.dumps(build_s_by_lib)})", flush=True)
 
+    stamp("37")
+    # ---- 37. the port's bench in this process: its rows (the headline with
+    # the pool, the refit row, the vn rows) and its line; phases 3, 7 and 13
+    # read their rates from these rows. It runs before any phase has used
+    # the profiler
+    _, bench_rows, bench_counts = bench_phase(device, card)
+
     stamp("2")
     # ---- 2. kernel vs plain version on the card
     kern = kernel_rows(device)
@@ -3050,28 +3096,21 @@ def main() -> int:
                     and r["r"] == M and r["L"] == TILE * len(VALS))
 
     stamp("3")
-    # ---- 3. the f32 lookahead tile at the bench shape
+    # ---- 3. the f32 lookahead tile at the bench shape: the bench's
+    # headline (phase 37), its first timed tile at seed 3
     rng = np.random.default_rng(0)
     real, known, _ = make_fake_data(
         num_users=N, num_items=M, rank=D, noise=0.5,
         mask_type=0.05 * 100000 / (N * M), rng=rng)
     real = np.clip(np.round(real - real.mean() + 3.0), 1.0, 5.0)
-    prob = types.problem_from_dense(real, known, dtype=torch.float32,
-                                    device=device)
-    pcfg = pmf.PMFConfig(latent_d=D, subtract_mean=True)
-    gcfg = bpmf_gibbs.GibbsConfig(latent_d=D, subtract_mean=True)
-    bounds = tuple(types.rating_bounds(VALS))
-    t0 = time.perf_counter()
-    pst = pmf.init_state(generator(1, device), N, M, pcfg, prob,
-                         dtype=torch.float32, device=device)
-    pst, info = pmf.fit(pst, prob, pcfg)
-    _, stats, _ = bpmf_gibbs.run_chain(
-        bpmf_gibbs.init_chain(pst), prob, gcfg, BASE_SAMPS,
-        generator=generator(2, device), value_bounds=bounds)
-    torch.cuda.synchronize()
-    print(f"MAP fit ({int(info.n_iters)} proposals) + {BASE_SAMPS}-sample "
-          f"base chain s {time.perf_counter() - t0:.2f}", flush=True)
-    cand = cand32 = torch.nonzero(prob.queryable.flatten())[:TILE, 0]
+    bench_real, bench_known, prob = bench_rows["problem"]
+    check(np.array_equal(real, bench_real) and np.array_equal(
+        known, bench_known), "the bench's problem is not phase 3's")
+    head = bench_rows["gibbs"]
+    pst, stats, pcfg, gcfg = head["state"]
+    print(f"MAP fit + {BASE_SAMPS}-sample base chain s "
+          f"{head['setup_s']:.2f}", flush=True)
+    cand = cand32 = head["cand"][:TILE]
 
     def tile(dtype_pst, dtype_prob, dtype_stats, kernel=True):
         return bpmf_gibbs.exp_variance_scores(
@@ -3079,36 +3118,40 @@ def main() -> int:
             num_samps=LA_SAMPS, fit_budget=FIT_BUDGET, cand=cand,
             n_base_samples=BASE_SAMPS, poly_ls=True, chol_kernel=kernel)
 
-    ck.chol_gram_solve_sample_cuda.launches = 0
-    ck.chol_solve_sample_batch_minor.launches = 0
-    ck.chol_solve_sample_reference.calls = 0
-    tile_s = []
-    for _ in range(2):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        scores = tile(pst, prob, stats)
-        torch.cuda.synchronize()
-        tile_s.append(time.perf_counter() - t0)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    la_launches = ck.chol_gram_solve_sample_cuda.launches
+    scores = head["scores"][0]
+    # the headline's launches, counted in phase 37 (phase 2 has launched the
+    # kernel and the plain version since); from here the counts run on
+    # from them for phase 4
+    la_launches = bench_counts["b1"]["gram_fed"]
+    ck.chol_gram_solve_sample_cuda.launches = la_launches
+    ck.chol_solve_sample_batch_minor.launches = bench_counts["b1"]["s_given"]
+    ck.chol_solve_sample_reference.calls = bench_counts["b1"]["plain"]
     check(scores.shape == (TILE,), f"scores shape {tuple(scores.shape)}")
     check(bool(torch.isfinite(scores).all()), f"non-finite scores {scores}")
     check(bool((scores > 0).all()), f"non-positive scores {scores}")
-    # a tile: 30 rounds of 2 sweeps, a U and a V draw each, one launch a draw
+    # a tile: 30 rounds of 2 sweeps, a U and a V draw each, one launch a
+    # draw; the base chain the same over its 128 rounds
     draws = LA_SAMPS * gcfg.num_gibbs * 2
-    check(la_launches == 2 * draws,
-          f"two lookahead tiles launched the Gram-fed kernel {la_launches} "
-          f"times: want {draws} a tile")
+    base_draws = BASE_SAMPS * gcfg.num_gibbs * 2
+    check(la_launches == base_draws + head["tiles_run"] * draws,
+          f"the base chain and {head['tiles_run']} lookahead tiles launched "
+          f"the Gram-fed kernel {la_launches} times: want {base_draws} + "
+          f"{draws} a tile")
     check(ck.chol_solve_sample_batch_minor.launches == 0,
           "the S-given entry ran on the CUDA main path")
     check(ck.chol_solve_sample_reference.calls == 0,
           "the plain version ran on the CUDA main path")
+    n_tiles = len(head["scores"])
     print(json.dumps(dict(
-        phase="lookahead_f32", lanes=TILE * len(VALS), tile_s=tile_s,
-        candidates_per_s=TILE / tile_s[1], peak_mem_gib=peak_gib,
-        kernel_launches=la_launches, launches_a_tile=draws,
-        scores_min=scores.min().item(), scores_max=scores.max().item())),
-        flush=True)
+        phase="lookahead_f32", lanes=TILE * len(VALS),
+        warm_tile_s=head["warm_s"], tiles=n_tiles, tiles_s=head["tiles_s"],
+        tile_s_mean=head["tiles_s"] / n_tiles,
+        candidates_per_s=head["value"],
+        device_only_candidates_per_s=head["device_only"],
+        one_tile_s=head["t1_s"], three_tiles_s=head["t3_s"],
+        peak_mem_gib=head["peak_mem_gib"], kernel_launches=la_launches,
+        launches_a_tile=draws, scores_min=scores.min().item(),
+        scores_max=scores.max().item())), flush=True)
 
     # where a warm tile spends its time (profiled apart from the timed tiles
     # and from the launch counts above)
@@ -3188,15 +3231,13 @@ def main() -> int:
     vg = value_grad_rows(device, prob.R_obs, prob.rated)
 
     stamp("7")
-    # ---- 7. the bench's lane-blocked PMF refit: 1024 candidates, 8 tiles
-    rcfg = pmf.PMFConfig(latent_d=D, max_fit_steps=200)
-    rst = pmf.init_state(generator(7, device), N, M, rcfg, prob,
-                         dtype=torch.float32, device=device)
-    rst, _ = pmf.fit(rst, prob, rcfg)
-    cand = torch.nonzero(prob.queryable.flatten())[:PK_N_CAND, 0]
-    di, dj = cand // M, cand % M
-    dv = (rst.U[di] * rst.V[dj]).sum(1)
+    # ---- 7. the bench's lane-blocked PMF refit: 1024 candidates, 8 tiles;
+    # the bf16 sweep is the bench's refit row (phase 37), the f32 one here
+    refit_row = bench_rows["refit"]
+    rst, rcfg = refit_row["state"]
+    di, dj, dv = refit_row["cells"]
     tiles = [slice(s, s + PK_TILE) for s in range(0, PK_N_CAND, PK_TILE)]
+    check(len(tiles) == refit_row["tiles"], "the bench's refit tiles")
 
     def refit(s, **kw):
         return pmf.fit_lookahead_batch(
@@ -3225,20 +3266,23 @@ def main() -> int:
     pk.pmf_value_grad_cuda.variants.clear()
     pk.pmf_value_grad_plain.calls = 0
     since = (pk.rated_index.calls, fit_calls[0])
-    refit_rate, refit_f = {}, {}
-    for bf16 in (True, False):
-        sweep(bf16)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        refit_f[bf16] = sweep(bf16)
-        torch.cuda.synchronize()
-        refit_rate[bf16] = PK_N_CAND / (time.perf_counter() - t0)
-    refit_launches = dict(pk.pmf_value_grad_cuda.launches)
+    refit_rate = {True: refit_row["rate"]}
+    refit_f = {True: refit_row["neg_ll"]}
+    sweep(False)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refit_f[False] = sweep(False)
+    torch.cuda.synchronize()
+    refit_rate[False] = PK_N_CAND / (time.perf_counter() - t0)
+    # the bf16 launches are the bench row's, counted in phase 37
+    refit_launches = {**{tuple(k.split("/")): v
+                         for k, v in bench_counts["b2"].items()},
+                      **pk.pmf_value_grad_cuda.launches}
     refit_index = index_builds_per_refit(since)
     check(pk.pmf_value_grad_plain.calls == 0,
           "the plain value+grad version ran on the refit path")
-    check(refit_index[0] == refit_index[1] == 4 * len(tiles),
-          f"index builds and refits of the sweeps: {refit_index}")
+    check(refit_index[0] == refit_index[1] == 2 * len(tiles),
+          f"index builds and refits of the f32 sweeps: {refit_index}")
     check(pk.pmf_value_grad_cuda.variants["global"] == 0,
           "a refit tile left its factors in global memory")
     for bf16 in (True, False):
@@ -3782,7 +3826,7 @@ def main() -> int:
     # ---- 12. the main paths at d = 48
     wide = wide_main_paths(device, prob, real, knowable, rng, work)
     # ---- 13-16. the variational (ActivePMF) path
-    vn = vn_phases(device)
+    vn = vn_phases(device, bench_rows)
     # ---- 17-21. the NUTS BPMF path
     nuts_phases(device)
     # ---- 22-24. RatingConcentration; 25-26. cold start; 27. fit types

@@ -45,6 +45,7 @@ SLICE = [
     "amf_tpu_torch.run.get_criteria", "amf_tpu_torch.run.experiment",
     "amf_tpu_torch.parallel.mesh", "amf_tpu_torch.parallel.sharding",
     "amf_tpu_torch.parallel.dryrun", "amf_tpu_torch._native",
+    "amf_tpu_torch.bench", "amf_tpu_torch.bench_pool",
 ]
 
 
