@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
+from amf_tpu_torch.utils.profiling import span
 from amf_tpu_torch.utils.rng import fold_in, fold_in_name
 
 
@@ -81,6 +82,8 @@ def drive_active(
     ``mesh`` (``parallel.mesh.CandidateMesh``): every rank runs this loop on
     the same state and takes the same pick from the gathered scores; each
     pick is gathered and a rank that differs fails the run.
+
+    Each step is the span ``active.step``.
     """
     n, m = problem.shape
     ckpt = ckpt or LoopCheckpointer(None)
@@ -112,47 +115,49 @@ def drive_active(
             max_steps = min(max_steps, len(replay_picks))
 
         while bool(prob_k.queryable.any()) and len(records) < max_steps:
-            t_step = time.time()
-            kstep = fold_in(kloop, len(records))
-            kscore, krefit = fold_in(kstep, 0), fold_in(kstep, 1)
-            if replay_picks is not None:
-                i, j = (int(x) for x in replay_picks[len(records)])
-                flat = i * m + j
-                evals = None
-            elif int(prob_k.queryable.sum()) == 1:
-                flat = int(torch.nonzero(prob_k.queryable.flatten())[0, 0])
-                evals = None
-            else:
-                ev, choose_max = family.score(kname, state, prob_k, kscore)
-                fill = -torch.inf if choose_max else torch.inf
-                masked = torch.where(prob_k.queryable & torch.isfinite(ev),
-                                     ev, fill)
-                flat = int(torch.argmax(masked) if choose_max
-                           else torch.argmin(masked))
-                if not bool(torch.isfinite(masked.flatten()[flat])):
-                    # no queryable cell has a finite score: the reference
-                    # still picks a QUERYABLE cell
-                    flat = int(torch.argmax(
-                        prob_k.queryable.flatten().to(torch.int32)))
-                evals = ev.cpu().numpy()
-            if mesh is not None:
-                mesh.check_same(flat, f"the pick of {kname} step "
-                                      f"{len(records)}")
-            i, j = flat // m, flat % m
-            t_score = time.time() - t_step
+            with span("active.step"):
+                t_step = time.time()
+                kstep = fold_in(kloop, len(records))
+                kscore, krefit = fold_in(kstep, 0), fold_in(kstep, 1)
+                if replay_picks is not None:
+                    i, j = (int(x) for x in replay_picks[len(records)])
+                    flat = i * m + j
+                    evals = None
+                elif int(prob_k.queryable.sum()) == 1:
+                    flat = int(torch.nonzero(prob_k.queryable.flatten())[0, 0])
+                    evals = None
+                else:
+                    ev, choose_max = family.score(kname, state, prob_k, kscore)
+                    fill = -torch.inf if choose_max else torch.inf
+                    masked = torch.where(prob_k.queryable & torch.isfinite(ev),
+                                         ev, fill)
+                    flat = int(torch.argmax(masked) if choose_max
+                               else torch.argmin(masked))
+                    if not bool(torch.isfinite(masked.flatten()[flat])):
+                        # no queryable cell has a finite score: the reference
+                        # still picks a QUERYABLE cell
+                        flat = int(torch.argmax(
+                            prob_k.queryable.flatten().to(torch.int32)))
+                    evals = ev.cpu().numpy()
+                if mesh is not None:
+                    mesh.check_same(flat, f"the pick of {kname} step "
+                                          f"{len(records)}")
+                i, j = flat // m, flat % m
+                t_score = time.time() - t_step
 
-            prob_k = prob_k.add_rating(i, j, float(real[i, j]))
-            state = family.refit(state, prob_k, krefit)
-            err = float(family.err(state, prob_k))
-            rec = (int(prob_k.n_rated), err, (i, j), evals)
-            if family.extra is not None:
-                rec = rec + tuple(family.extra(state))
-            records.append(rec)
-            ckpt.update(kname, records)
-            if verbose:
-                print(f"{nice:<36} step {len(records) - 1}: "
-                      f"picked ({i},{j}), err {err:.5f} (score "
-                      f"{t_score:.2f}s, refit {time.time() - t_step - t_score:.2f}s)")
+                prob_k = prob_k.add_rating(i, j, float(real[i, j]))
+                state = family.refit(state, prob_k, krefit)
+                err = float(family.err(state, prob_k))
+                rec = (int(prob_k.n_rated), err, (i, j), evals)
+                if family.extra is not None:
+                    rec = rec + tuple(family.extra(state))
+                records.append(rec)
+                ckpt.update(kname, records)
+                if verbose:
+                    t_refit = time.time() - t_step - t_score
+                    print(f"{nice:<36} step {len(records) - 1}: "
+                          f"picked ({i},{j}), err {err:.5f} (score "
+                          f"{t_score:.2f}s, refit {t_refit:.2f}s)")
 
         ckpt.update(kname, records, force=True)
         out[kname] = records

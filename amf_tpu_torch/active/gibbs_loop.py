@@ -22,6 +22,7 @@ from amf_tpu_torch.parallel.sharding import sharded_candidate_scores
 from amf_tpu_torch.types import Problem, rating_bounds, ratings_array
 from amf_tpu_torch.utils.checkpoint import LoopCheckpointer
 from amf_tpu_torch.utils.platform import resolve_device
+from amf_tpu_torch.utils.profiling import span
 from amf_tpu_torch.utils.rng import fold_in, fold_in_name, generator
 
 
@@ -164,18 +165,26 @@ def gibbs_family(
             raise ValueError(spec.kind)
         return torch.where(prob.queryable, ev, float("nan"))
 
-    def err(st, prob):
-        if binary_acc:
-            return metrics.binary_misclassification(st[1].mean, real_t, prob.test)
-        return metrics.rmse_on(st[1].mean, real_t, prob.test)
+    # the family's callables are the spans active.score, active.refit and
+    # active.err
+    def score(kname, st, prob, k):
+        with span("active.score"):
+            return (evals_for(kname, st[0], st[1], prob, k),
+                    KEYS[kname].choose_max)
 
-    family = Family(
-        nice_name=lambda kname: KEYS[kname].nice_name,
-        score=lambda kname, st, prob, k: (
-            evals_for(kname, st[0], st[1], prob, k), KEYS[kname].choose_max),
-        refit=lambda st, prob, k: refit_and_sample(st[0], prob, k),
-        err=err,
-    )
+    def refit(st, prob, k):
+        with span("active.refit"):
+            return refit_and_sample(st[0], prob, k)
+
+    def err(st, prob):
+        with span("active.err"):
+            if binary_acc:
+                return metrics.binary_misclassification(st[1].mean, real_t,
+                                                        prob.test)
+            return metrics.rmse_on(st[1].mean, real_t, prob.test)
+
+    family = Family(nice_name=lambda kname: KEYS[kname].nice_name,
+                    score=score, refit=refit, err=err)
     return problem, family, fit_and_sample(problem, fold_in_name(seed, "init"))
 
 

@@ -35,9 +35,9 @@ replay the JAX package's key stream through the same interface.
 The potential's gradient is ``torch.autograd.grad`` of the lanes' summed
 log density: lanes are independent, so one backward pass gives every
 lane's gradient; on the card it is one CUDA graph a call (``potential``).
-The potential and the RNG windows run under profiler ranges
-(``nuts.potential``, ``nuts.rng``), so a trace splits a transition into
-them and the bookkeeping around them.
+The potential and the RNG windows are spans (``nuts.potential``,
+``nuts.rng``; ``utils/profiling``), so a profiler's trace splits a
+transition into them and the bookkeeping around them.
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from amf_tpu_torch.utils.profiling import span
 
 # Provenance tag of the warmup controller that generated a recorded run;
 # the same string as the JAX package's, whose controller this is. Stamped
@@ -110,7 +111,7 @@ class GeneratorNoise(NUTSNoise):
         L = len(self.gens)
         z = torch.empty((L, W, dim), dtype=self.dtype, device=self.device)
         u = torch.empty((L, W, n_u), dtype=self.dtype, device=self.device)
-        with record_function("nuts.rng"):
+        with span("nuts.rng"):
             for row_z, row_u, gen in zip(z, u, self.gens):
                 row_z.normal_(generator=gen)
                 row_u.uniform_(generator=gen)
@@ -222,7 +223,7 @@ def potential(logprob_fn: Callable[[torch.Tensor], torch.Tensor],
         captured.update(graph=g, q=static_q, out=out, shape=q.shape)
 
     def pe_and_grad(q):
-        with record_function("nuts.potential"):
+        with span("nuts.potential"):
             if not graph or q.device.type != "cuda":
                 return eager(q)
             if captured.get("shape") != q.shape:

@@ -40,6 +40,7 @@ from amf_tpu_torch.ops.chol_kernel import chol_gram_solve_sample, tril_pairs
 from amf_tpu_torch.types import LaneCells, Problem
 from amf_tpu_torch.utils.linalg import cholesky_or_nan as _cholesky
 from amf_tpu_torch.utils.linalg import inverse_or_nan as _inverse
+from amf_tpu_torch.utils.profiling import span
 from amf_tpu_torch.utils.rng import lane_gammas, lane_generators, lane_normals
 
 
@@ -214,15 +215,18 @@ class RoundNoise(NamedTuple):
 
 def draw_round_noise(generators: Sequence[torch.Generator], n: int, m: int,
                      cfg: GibbsConfig, dtype, device) -> RoundNoise:
-    """One round's draws: one normal and one Gamma call per lane."""
+    """One round's draws: one normal and one Gamma call per lane (the span
+    ``gibbs.noise``)."""
     d, g = cfg.latent_d, cfg.num_gibbs
     L = len(generators)
     sizes = [d * d, d, d * d, d, g * n * d, g * m * d]
-    flat = lane_normals(generators, sum(sizes), dtype, device)
-    wu, mu_u, wv, mu_v, zu, zv = torch.split(flat, sizes, dim=1)
-    like = flat[:1, :1]
-    shape = torch.cat([_dof_shape(d, d + n, like), _dof_shape(d, d + m, like)])
-    gam = lane_gammas(generators, shape)
+    with span("gibbs.noise"):
+        flat = lane_normals(generators, sum(sizes), dtype, device)
+        wu, mu_u, wv, mu_v, zu, zv = torch.split(flat, sizes, dim=1)
+        like = flat[:1, :1]
+        shape = torch.cat([_dof_shape(d, d + n, like),
+                           _dof_shape(d, d + m, like)])
+        gam = lane_gammas(generators, shape)
     return RoundNoise(
         gamma_u=gam[:, :d], normal_wu=wu.reshape(L, d, d), normal_mu_u=mu_u,
         gamma_v=gam[:, d:], normal_wv=wv.reshape(L, d, d), normal_mu_v=mu_v,
@@ -317,64 +321,67 @@ def run_chain(
     value_bounds: rating-bin edges (types.rating_bounds) for the per-bin
     counts of the discrete lookahead (reference: bayes_pmf._distribute
     :489-501). No (num_samps, n, m) tensor is formed: the sums of pred and
-    pred^2 are accumulated in place.
+    pred^2 are accumulated in place. The chain is the span
+    ``gibbs.chain`` (its ``lanes`` and ``rounds``).
     """
-    single = chain.U.dim() == 2
-    if single:
-        chain = ChainState(chain.U[None], chain.V[None],
-                           chain.mean_rating.reshape(1))
-        generators = [generator]
-    n, m = problem.shape
-    L = chain.U.shape[0]
-    dtype, device = chain.U.dtype, chain.U.device
-    base = _base(problem, dtype)
-    deltas = cells.deltas(problem) if cells is not None else None
-    n_cut = len(cutoffs)
-    cut = torch.as_tensor(cutoffs, dtype=dtype, device=device).reshape(
-        n_cut, 1, 1)
-    n_bins = 0
-    if value_bounds is not None:
-        edges = torch.as_tensor(np.asarray(value_bounds), dtype=dtype,
-                                device=device)
-        n_bins = edges.shape[0] - 1
-        lo, hi = edges[:-1, None, None], edges[1:, None, None]
+    with span("gibbs.chain", rounds=num_samps) as sp:
+        single = chain.U.dim() == 2
+        if single:
+            chain = ChainState(chain.U[None], chain.V[None],
+                               chain.mean_rating.reshape(1))
+            generators = [generator]
+        n, m = problem.shape
+        L = chain.U.shape[0]
+        sp.set(lanes=L)
+        dtype, device = chain.U.dtype, chain.U.device
+        base = _base(problem, dtype)
+        deltas = cells.deltas(problem) if cells is not None else None
+        n_cut = len(cutoffs)
+        cut = torch.as_tensor(cutoffs, dtype=dtype, device=device).reshape(
+            n_cut, 1, 1)
+        n_bins = 0
+        if value_bounds is not None:
+            edges = torch.as_tensor(np.asarray(value_bounds), dtype=dtype,
+                                    device=device)
+            n_bins = edges.shape[0] - 1
+            lo, hi = edges[:-1, None, None], edges[1:, None, None]
 
-    s1 = torch.zeros((L, n, m), dtype=dtype, device=device)
-    s2 = torch.zeros_like(s1)
-    ge = torch.zeros((L, n_cut, n, m), dtype=dtype, device=device)
-    bins = torch.zeros((L, n_bins, n, m), dtype=dtype, device=device)
-    samples = []
-    for _ in range(num_samps):
-        noise = draw_round_noise(generators, n, m, cfg, dtype, device)
-        chain = _gibbs_round(chain, base, cfg, noise, cells, deltas,
-                             chol_kernel)
-        pred = chain.U @ chain.V.mT
-        if cfg.subtract_mean:
-            pred.add_(chain.mean_rating[:, None, None])
-        s1 += pred
-        s2.addcmul_(pred, pred)
-        if n_cut:
-            ge += (pred[:, None] >= cut).to(dtype)
-        if n_bins:
-            p = pred[:, None]
-            bins += ((p >= lo) & (p < hi)).to(dtype)
+        s1 = torch.zeros((L, n, m), dtype=dtype, device=device)
+        s2 = torch.zeros_like(s1)
+        ge = torch.zeros((L, n_cut, n, m), dtype=dtype, device=device)
+        bins = torch.zeros((L, n_bins, n, m), dtype=dtype, device=device)
+        samples = []
+        for _ in range(num_samps):
+            noise = draw_round_noise(generators, n, m, cfg, dtype, device)
+            chain = _gibbs_round(chain, base, cfg, noise, cells, deltas,
+                                 chol_kernel)
+            pred = chain.U @ chain.V.mT
+            if cfg.subtract_mean:
+                pred.add_(chain.mean_rating[:, None, None])
+            s1 += pred
+            s2.addcmul_(pred, pred)
+            if n_cut:
+                ge += (pred[:, None] >= cut).to(dtype)
+            if n_bins:
+                p = pred[:, None]
+                bins += ((p >= lo) & (p < hi)).to(dtype)
+            if keep_samples:
+                samples.append((chain.U, chain.V))
+            del pred
+
+        mean = s1.div_(num_samps)
+        var = s2.div_(num_samps).sub_(mean * mean).clamp_(min=0.0)  # ddof=0
+        stats = PredStats(mean=mean, var=var, prob_ge=ge / num_samps,
+                          bin_counts=bins if n_bins else None)
+        out = None
         if keep_samples:
-            samples.append((chain.U, chain.V))
-        del pred
-
-    mean = s1.div_(num_samps)
-    var = s2.div_(num_samps).sub_(mean * mean).clamp_(min=0.0)  # ddof=0
-    stats = PredStats(mean=mean, var=var, prob_ge=ge / num_samps,
-                      bin_counts=bins if n_bins else None)
-    out = None
-    if keep_samples:
-        out = (torch.stack([u for u, _ in samples], dim=1),
-               torch.stack([v for _, v in samples], dim=1))
-    if single:
-        chain = ChainState(chain.U[0], chain.V[0], chain.mean_rating[0])
-        stats = PredStats(*(None if x is None else x[0] for x in stats))
-        out = None if out is None else (out[0][0], out[1][0])
-    return chain, stats, out
+            out = (torch.stack([u for u, _ in samples], dim=1),
+                   torch.stack([v for _, v in samples], dim=1))
+        if single:
+            chain = ChainState(chain.U[0], chain.V[0], chain.mean_rating[0])
+            stats = PredStats(*(None if x is None else x[0] for x in stats))
+            out = None if out is None else (out[0][0], out[1][0])
+        return chain, stats, out
 
 
 # ---------------------------------------------------------------------------
@@ -443,46 +450,49 @@ def exp_variance_scores(
     cell indices (default: every cell); ``candidate_tile`` > 0 runs that
     many candidates at a time (bounds memory; the scores do not change).
     ``seed`` roots the lane streams. Returns flat scores (C,), NaN off the
-    queryable pool.
+    queryable pool. The call is the span ``lookahead.tile``.
     """
-    n, m = problem.shape
-    device = problem.R_obs.device
-    dtype = pmf_state.U.dtype
-    if cand is None:
-        cand = torch.arange(n * m, device=device)
-    cand = torch.as_tensor(cand, device=device).long()
-    ii, jj = cand // m, cand % m
+    with span("lookahead.tile"):
+        n, m = problem.shape
+        device = problem.R_obs.device
+        dtype = pmf_state.U.dtype
+        if cand is None:
+            cand = torch.arange(n * m, device=device)
+        cand = torch.as_tensor(cand, device=device).long()
+        ii, jj = cand // m, cand % m
 
-    if rating_values and base_stats.bin_counts is None:
-        raise ValueError(
-            "rating_values given but base_stats has no bin_counts — run the "
-            "base chain with value_bounds for the discrete lookahead")
-    if rating_values:
-        values = torch.as_tensor(sorted(rating_values), dtype=dtype,
-                                 device=device)
-        n_vals = values.shape[0]
-        denom = n_base_samples + dirichlet_alpha * n_vals
-        w_c = ((base_stats.bin_counts[:, ii, jj] + dirichlet_alpha) / denom).T
-        vals_c = values.expand(cand.shape[0], n_vals)
-    else:
-        from amf_tpu_torch.ops.quadrature import normal_trapezoid_grid
+        if rating_values and base_stats.bin_counts is None:
+            raise ValueError(
+                "rating_values given but base_stats has no bin_counts — run "
+                "the base chain with value_bounds for the discrete "
+                "lookahead")
+        if rating_values:
+            values = torch.as_tensor(sorted(rating_values), dtype=dtype,
+                                     device=device)
+            n_vals = values.shape[0]
+            denom = n_base_samples + dirichlet_alpha * n_vals
+            w_c = ((base_stats.bin_counts[:, ii, jj] + dirichlet_alpha)
+                   / denom).T
+            vals_c = values.expand(cand.shape[0], n_vals)
+        else:
+            from amf_tpu_torch.ops.quadrature import normal_trapezoid_grid
 
-        z, w = normal_trapezoid_grid(num_integration_pts)
-        z = torch.as_tensor(z, dtype=dtype, device=device)
-        mean_c = base_stats.mean[ii, jj]
-        std_c = torch.sqrt(base_stats.var[ii, jj].clamp(min=1e-12))
-        vals_c = mean_c[:, None] + std_c[:, None] * z
-        w_c = torch.as_tensor(w, dtype=dtype, device=device).expand(
-            vals_c.shape)
+            z, w = normal_trapezoid_grid(num_integration_pts)
+            z = torch.as_tensor(z, dtype=dtype, device=device)
+            mean_c = base_stats.mean[ii, jj]
+            std_c = torch.sqrt(base_stats.var[ii, jj].clamp(min=1e-12))
+            vals_c = mean_c[:, None] + std_c[:, None] * z
+            w_c = torch.as_tensor(w, dtype=dtype, device=device).expand(
+                vals_c.shape)
 
-    C = cand.shape[0]
-    tile = candidate_tile if candidate_tile and candidate_tile < C else C
-    evals = torch.empty(vals_c.shape, dtype=dtype, device=device)
-    for t0 in range(0, C, tile):
-        sl = slice(t0, t0 + tile)
-        evals[sl] = _lane_total_variance(
-            seed, pmf_state, problem, pcfg, cfg, cand[sl], vals_c[sl],
-            num_samps, fit_first, fit_budget, poly_ls, chol_kernel)
+        C = cand.shape[0]
+        tile = candidate_tile if candidate_tile and candidate_tile < C else C
+        evals = torch.empty(vals_c.shape, dtype=dtype, device=device)
+        for t0 in range(0, C, tile):
+            sl = slice(t0, t0 + tile)
+            evals[sl] = _lane_total_variance(
+                seed, pmf_state, problem, pcfg, cfg, cand[sl], vals_c[sl],
+                num_samps, fit_first, fit_budget, poly_ls, chol_kernel)
 
-    scores = (evals * w_c).sum(dim=-1)
-    return torch.where(problem.queryable[ii, jj], scores, float("nan"))
+        scores = (evals * w_c).sum(dim=-1)
+        return torch.where(problem.queryable[ii, jj], scores, float("nan"))

@@ -14,8 +14,7 @@ never copied per lane, each lane's own cell is patched into its residual.
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +25,7 @@ from amf_tpu_torch.ops.linesearch import (
 )
 from amf_tpu_torch.types import LaneCells, Problem
 from amf_tpu_torch.utils.platform import resolve_device
+from amf_tpu_torch.utils.profiling import span
 
 
 class PMFConfig(NamedTuple):
@@ -237,14 +237,16 @@ def fit(
 
     common = dict(lr0=cfg.learning_rate, stop_thresh=cfg.stop_thresh,
                   min_lr=cfg.min_learning_rate, max_steps=max_steps)
-    if poly_ls:
-        (U, V), info = adaptive_descent_poly(
-            (state.U, state.V), value_and_grad_fn, step_fn,
-            lambda uv, g: _delta_poly(state, problem, cfg, uv, g, lanes),
-            **common)
-    else:
-        (U, V), info = adaptive_descent(
-            (state.U, state.V), value_and_grad_fn, step_fn, **common)
+    with span("pmf.fit") as sp:
+        if poly_ls:
+            (U, V), info = adaptive_descent_poly(
+                (state.U, state.V), value_and_grad_fn, step_fn,
+                lambda uv, g: _delta_poly(state, problem, cfg, uv, g, lanes),
+                **common)
+        else:
+            (U, V), info = adaptive_descent(
+                (state.U, state.V), value_and_grad_fn, step_fn, **common)
+        sp.set(iters=info.loop_iters, accepts=info.n_accepts)
     return dataclasses.replace(state, U=U, V=V), info
 
 
@@ -499,18 +501,6 @@ def fit_lbfgs(
 # Minibatch SGD path (reference: fit_minibatches* pmf.py:226-284)
 
 
-class MiniValidTimes:
-    """Wall seconds of every 'mini-valid' epoch since ``reset``: the host
-    clock from the epoch's permutation to its validation error, which waits
-    for the card. A graphed fit's first epoch includes the capture."""
-
-    epochs: List[float] = []
-
-    @classmethod
-    def reset(cls):
-        cls.epochs = []
-
-
 class MiniBatchNoise:
     """The draws of the 'mini-valid' fit, from one ``torch.Generator``: the
     validation subset (on the host) and one permutation of all cells an
@@ -560,7 +550,10 @@ def fit_minibatches_until_validation(
     An epoch is ceil(n m / batch_size) steps of about 20 launches each, with
     no host wait. On the card the epoch's steps are captured once in one
     CUDA graph (static shapes) and the graph is replayed every epoch;
-    ``graph=False``, or the CPU, runs them eagerly.
+    ``graph=False``, or the CPU, runs them eagerly. Each epoch is a span,
+    ``pmf.minibatch_epoch``, from its permutation to its validation
+    error, which waits for the card; a graphed fit's first epoch holds the
+    capture.
     """
     if isinstance(noise, torch.Generator):
         noise = MiniBatchNoise(noise)
@@ -612,15 +605,15 @@ def fit_minibatches_until_validation(
 
     last_valid = torch.inf
     for _ in range(max_epochs):
-        t0 = time.perf_counter()
-        p = noise.permutation(cap).to(device)
-        perm.copy_(torch.cat([p, p[:pad]]) if pad else p)
-        run()
-        pred_valid = (U[valid_i] * V[valid_j]).sum(1)
-        if cfg.subtract_mean:
-            pred_valid = pred_valid + state.mean_rating
-        valid_err = float(torch.sqrt(torch.mean((pred_valid - valid_r) ** 2)))
-        MiniValidTimes.epochs.append(time.perf_counter() - t0)
+        with span("pmf.minibatch_epoch"):
+            p = noise.permutation(cap).to(device)
+            perm.copy_(torch.cat([p, p[:pad]]) if pad else p)
+            run()
+            pred_valid = (U[valid_i] * V[valid_j]).sum(1)
+            if cfg.subtract_mean:
+                pred_valid = pred_valid + state.mean_rating
+            valid_err = float(
+                torch.sqrt(torch.mean((pred_valid - valid_r) ** 2)))
         if valid_err > last_valid - stop_thresh:
             break
         last_valid = valid_err

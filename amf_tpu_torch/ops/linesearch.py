@@ -34,6 +34,9 @@ class DescentInfo(NamedTuple):
     final_lr: torch.Tensor
     n_iters: torch.Tensor
     n_accepts: torch.Tensor
+    # passes of the lockstep loop, a Python int: read without waiting for
+    # the device
+    loop_iters: int = 0
 
 
 def _bcast(pred: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -76,9 +79,11 @@ def adaptive_descent(
     done = torch.zeros(f.shape, dtype=torch.bool, device=f.device)
     n_iters = torch.zeros(f.shape, dtype=torch.int32, device=f.device)
     n_accepts = torch.zeros_like(n_iters)
+    passes = 0
     for it in range(max_steps):
         if it % CHECK_EVERY == 0 and bool(done.all()):
             break
+        passes += 1
         active = ~done
         x_prop = step_fn(x, g, lr)
         new_f, new_g = value_and_grad_fn(x_prop)
@@ -93,7 +98,7 @@ def adaptive_descent(
         done = done | (active & conv)
         n_iters += active
         n_accepts += accept
-    return x, DescentInfo(f, lr, n_iters, n_accepts)
+    return x, DescentInfo(f, lr, n_iters, n_accepts, passes)
 
 
 def adaptive_descent_poly(
@@ -134,10 +139,12 @@ def adaptive_descent_poly(
     t = torch.arange(max_rungs, dtype=torch.int32, device=dev)
     ladder = shrink ** t.to(f.dtype)
     first = torch.ones(f.shape + (1,), dtype=torch.bool, device=dev)
+    passes = 0
     for epoch in range(max_steps):
         active = ~done & (n_iters < max_steps)
         if epoch % CHECK_EVERY == 0 and not bool(active.any()):
             break
+        passes += 1
         if epoch:
             f, g = value_and_grad_fn(x)
         c1, c2, c3, c4 = (c[..., None] for c in delta_poly_fn(x, g))
@@ -175,4 +182,4 @@ def adaptive_descent_poly(
         done = done | (active & conv)
         n_iters += torch.where(active, consumed, 0)
         n_accepts += take
-    return x, DescentInfo(f_carry, lr, n_iters, n_accepts)
+    return x, DescentInfo(f_carry, lr, n_iters, n_accepts, passes)

@@ -229,9 +229,12 @@ def gibbs_tile_on_ranks(mesh: CandidateMesh, seed: int, pst, prob, pcfg,
     seconds of its shard (first and read run), the read run's gather ms,
     the seconds from launch to the first collective, and the read run's
     launches of the Cholesky kernel's two entry points and calls of their
-    plain version, counted from 0 just before it."""
+    plain version, counted from 0 just before it. The seconds are the
+    spans ``parallel.score`` and ``parallel.gather``, recorded under
+    ``utils.profiling.tracing``."""
     from amf_tpu_torch.models import bpmf_gibbs
     from amf_tpu_torch.ops import chol_kernel as ck
+    from amf_tpu_torch.utils import profiling
 
     dev = mesh.device
     pst, prob, stats = _to(pst, dev), prob.to(device=dev), _to(stats, dev)
@@ -241,15 +244,20 @@ def gibbs_tile_on_ranks(mesh: CandidateMesh, seed: int, pst, prob, pcfg,
         lambda c, s: bpmf_gibbs.exp_variance_scores(
             s, pst, prob, pcfg, gcfg, stats, vals, cand=c, **kw),
         n * m, mesh, cand)
-    run(seed)
-    first_s = mesh.stats["score_s"]
-    ck.chol_gram_solve_sample_cuda.launches = 0
-    ck.chol_solve_sample_batch_minor.launches = 0
-    ck.chol_solve_sample_reference.calls = 0
-    scores = run(seed)[cand]
+
+    def last_s(name):
+        return [s.host_s for s in profiling.spans() if s.name == name][-1]
+
+    with profiling.tracing():
+        run(seed)
+        first_s = last_s("parallel.score")
+        ck.chol_gram_solve_sample_cuda.launches = 0
+        ck.chol_solve_sample_batch_minor.launches = 0
+        ck.chol_solve_sample_reference.calls = 0
+        scores = run(seed)[cand]
     counts = ck.launch_counts()
-    mine = torch.tensor([first_s, mesh.stats["score_s"],
-                         mesh.stats["gather_ms"],
+    mine = torch.tensor([first_s, last_s("parallel.score"),
+                         last_s("parallel.gather") * 1e3,
                          mesh.stats.get("setup_s", float("nan")),
                          counts["gram_fed"], counts["s_given"],
                          counts["plain"]], dtype=torch.float64, device=dev)

@@ -48,11 +48,10 @@ TIMEOUT = datetime.timedelta(seconds=300)
 class CandidateMesh:
     """This process's place in a group of ranks, one a device.
 
-    ``group`` None means the default process group. ``stats`` collects what
-    the sharded scorers measure on this rank: ``score_s`` (the seconds of
-    the last local scoring call), ``gather_ms`` (the last gather) and
-    ``setup_s`` (seconds from :func:`launch` to the group's first
-    collective; NaN when the group was not started by ``launch``).
+    ``group`` None means the default process group. ``stats`` holds
+    ``setup_s``, the seconds from :func:`launch` to the group's first
+    collective (absent when the group was not started by ``launch``); the
+    sharded scorers' times are spans (``parallel/sharding``).
     """
 
     rank: int

@@ -13,12 +13,12 @@ lock-guarded process pool (active_pmf.py:1064-1082).
 
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from amf_tpu_torch.parallel.mesh import CandidateMesh
+from amf_tpu_torch.utils import profiling
 
 
 def shard_range(n_cells: int, size: int, rank: int) -> Tuple[int, int]:
@@ -45,8 +45,9 @@ def sharded_candidate_scores(
     The cells are split into contiguous shards, padded to a multiple of
     the mesh size with copies of the last cell, and the padding is dropped
     after the gather. A rank whose share is all padding still scores and
-    gathers. ``mesh`` None scores every cell in this process. Each rank's
-    last shard seconds and gather ms go to ``mesh.stats``.
+    gathers. ``mesh`` None scores every cell in this process. A rank's
+    scoring and its gather are the spans ``parallel.score`` and
+    ``parallel.gather``, which wait for the device while tracing is on.
     """
 
     def run(seed: int) -> torch.Tensor:
@@ -64,16 +65,12 @@ def sharded_candidate_scores(
         C = int(c.numel())
         start, stop = shard_range(C, mesh.size, mesh.rank)
         idx = torch.arange(start, stop, device=c.device).clamp_(max=C - 1)
-        t0 = time.perf_counter()
-        local = score_flat_fn(c[idx], seed)
-        if local.device.type == "cuda":
-            torch.cuda.synchronize(local.device)
-        t1 = time.perf_counter()
-        gathered = torch.cat(mesh.all_gather(local))[:C]
-        if gathered.device.type == "cuda":
-            torch.cuda.synchronize(gathered.device)
-        mesh.stats["score_s"] = t1 - t0
-        mesh.stats["gather_ms"] = (time.perf_counter() - t1) * 1e3
+        with profiling.span("parallel.score"):
+            local = score_flat_fn(c[idx], seed)
+            profiling.synchronize(local.device)
+        with profiling.span("parallel.gather"):
+            gathered = torch.cat(mesh.all_gather(local))[:C]
+            profiling.synchronize(gathered.device)
         out = torch.full((n_cells,), torch.nan, dtype=local.dtype,
                          device=local.device)
         out[c] = gathered

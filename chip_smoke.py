@@ -2458,6 +2458,7 @@ def fit_type_phases(device, real, known):
     from amf_tpu_torch import types
     from amf_tpu_torch.models import pmf
     from amf_tpu_torch.ops import lbfgsb
+    from amf_tpu_torch.utils import profiling
     from amf_tpu_torch.utils.rng import generator
 
     stamp("27")
@@ -2468,18 +2469,27 @@ def fit_type_phases(device, real, known):
                          dtype=torch.float32, device=device)
     mini = ("mini-valid", FT_BATCH, FT_VALID, FT_LR, 0.8, 1e-3,
             FT_MAX_EPOCHS)
+
+    def epoch_times(fit):
+        """``fit()`` under ``profiling.tracing()``: (its result, the host
+        seconds of each 'mini-valid' epoch it ran)."""
+        with profiling.tracing():
+            profiling.spans(reset=True)
+            out = fit()
+        return out, [sp.host_s for sp in profiling.spans(reset=True)
+                     if sp.name == "pmf.minibatch_epoch"]
+
     rows = {}
     for name, fit_type in (("batch", ("batch",)), ("lbfgs", ("lbfgs",)),
                            ("mini-valid", mini)):
         torch.cuda.synchronize()
         lbfgsb.Counters.reset()
-        pmf.MiniValidTimes.reset()
         t0 = time.perf_counter()
-        st = pmf.do_fit(st0, prob, cfg, fit_type=fit_type,
-                        generator=generator(22, device))
+        st, times = epoch_times(lambda: pmf.do_fit(
+            st0, prob, cfg, fit_type=fit_type,
+            generator=generator(22, device)))
         torch.cuda.synchronize()
-        rows[name] = dict(s=time.perf_counter() - t0,
-                          epochs=len(pmf.MiniValidTimes.epochs),
+        rows[name] = dict(s=time.perf_counter() - t0, epochs=len(times),
                           ll=float(pmf.log_likelihood(st, prob, cfg)),
                           rmse_rated=float(pmf.rmse(st, prob, cfg,
                                                     prob.R_obs,
@@ -2492,11 +2502,9 @@ def fit_type_phases(device, real, known):
     # epochs a fit (no early stop), the first of a graphed fit with its
     # capture
     for graph in (False, True, True, False):
-        pmf.MiniValidTimes.reset()
-        pmf.fit_minibatches_until_validation(
+        _, times = epoch_times(lambda: pmf.fit_minibatches_until_validation(
             st0, prob, cfg, generator(23, device), FT_BATCH, FT_VALID,
-            lr=FT_LR, stop_thresh=-math.inf, max_epochs=3, graph=graph)
-        times = pmf.MiniValidTimes.epochs
+            lr=FT_LR, stop_thresh=-math.inf, max_epochs=3, graph=graph))
         key = "graphed" if graph else "eager"
         rows.setdefault(f"epoch_{key}_s", []).extend(times[1:])
         rows.setdefault(f"first_epoch_{key}_s", []).append(times[0])

@@ -1,0 +1,10 @@
+"""active_fit_s: the host time of the warm MAP refit (the span ``pmf.fit``
+inside ``active.refit``), a traced step's mean."""
+
+from portbench.metrics._spans import per_outer
+
+
+def read(r):
+    if r.loop.kind != "active_steps":
+        return None
+    return per_outer("pmf.fit", "active.refit", lambda s: s.host_s)

@@ -31,6 +31,7 @@ from amf_tpu.parallel import mesh as jmesh
 from amf_tpu.parallel import sharding as jsharding
 from amf_tpu_torch.data.loaders import save_npz_schema
 from amf_tpu_torch.parallel import dryrun, mesh, sharding
+from amf_tpu_torch.utils import profiling
 
 TOL = 1e-10
 
@@ -96,11 +97,15 @@ def test_world_of_one_scores_as_unsharded():
         def score(c, seed):
             return c.double() * 0.5 + seed
 
-        got = sharding.sharded_candidate_scores(score, 8, m1, cand)(3)
+        profiling.spans(reset=True)
+        with profiling.tracing():
+            got = sharding.sharded_candidate_scores(score, 8, m1, cand)(3)
         want = sharding.sharded_candidate_scores(score, 8, None, cand)(3)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
         assert np.isnan(got.numpy()[[0, 2, 3, 5, 7]]).all()
-        assert "gather_ms" in m1.stats
+        # the mesh's scoring and gather are spans, recorded while tracing
+        assert [s.name for s in profiling.spans(reset=True)] == [
+            "parallel.score", "parallel.gather"]
     finally:
         m1.close()
     assert not torch.distributed.is_initialized()
