@@ -27,7 +27,8 @@ behind ``--shard-candidates`` in five command lines; and the native host
 kernels. Every active loop checkpoints and resumes. Every kernel
 the JAX package wrote in Pallas has a hand-written CUDA kernel here, built
 by nvcc at first use and loaded with ctypes (any factor width d: d <= 32
-from one library a source, a wider d from a library built for it), and a
+from one library a source, a wider d from a library built for it; the
+fused line search and the masked Gram one library a width), and a
 plain PyTorch version beside it that the CPU runs. The variational, NUTS,
 maxent and MMMF paths run PyTorch's own linear algebra and autograd, as
 the JAX package runs XLA's:
@@ -40,6 +41,9 @@ the JAX package runs XLA's:
   ops           linesearch: the adaptive accept/reject and poly line searches
                 chol_kernel: Cholesky solve-and-sample, given S or fed from
                   the masked Gram products (csrc/chol_solve_sample.cu)
+                gram_kernel: the Gibbs draws' masked Gram products summed
+                  over the rated-cell index (csrc/masked_gram.cu), in
+                  place of the dense mask product below a crossover density
                 pmf_kernels: the index of the rated cells and, on it, the
                   per-lane value and gradients (csrc/pmf_value_grad.cu), the
                   line-search quartic's reductions (csrc/pmf_line_coeffs.cu)

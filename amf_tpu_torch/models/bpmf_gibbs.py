@@ -11,13 +11,17 @@ Layout on the card:
     ``mean_rating`` (L,). One chain is the case L = 1;
   * lanes share the base problem's mask and ratings; each lane carries its
     one hypothesised cell (``types.LaneCells``). The masked Gram of every
-    row, S_i = sum_j mask_ij v_j v_j^T, is one matrix product of the shared
-    mask against each lane's packed lower triangle of v_j v_j^T, plus a
-    one-cell correction for the lane's cell; the same holds for the
-    right-hand side;
+    row, S_i = sum_j mask_ij v_j v_j^T, is each lane's packed lower triangle
+    of v_j v_j^T summed over the row's shared rated cells, plus a one-cell
+    correction for the lane's cell; the same holds for the right-hand side.
+    On the card, a problem no denser than
+    ``ops/gram_kernel.GRAM_INDEX_MAX_DENSITY`` sums them over the rated-cell
+    index (``ops/gram_kernel.masked_gram``, built once a chain); a denser
+    one, and every CPU tensor, forms them as one matrix product of the
+    shared mask (``_gram_products``, the JAX package's form);
   * each row draw goes through the Cholesky solve-and-sample kernel
-    (ops/chol_kernel.py), which reads those products as they are left and
-    assembles S and the right-hand side itself;
+    (ops/chol_kernel.py), which reads those products in the one layout both
+    paths leave and assembles S and the right-hand side itself;
   * each lane draws the noise of a whole Gibbs round in one call on its own
     generator (utils/rng.py), so launches grow with lanes x rounds and the
     scores do not depend on how candidates are tiled.
@@ -36,7 +40,9 @@ import numpy as np
 import torch
 
 from amf_tpu_torch.models import pmf
+from amf_tpu_torch.ops import gram_kernel
 from amf_tpu_torch.ops.chol_kernel import chol_gram_solve_sample, tril_pairs
+from amf_tpu_torch.ops.pmf_kernels import rated_index
 from amf_tpu_torch.types import LaneCells, Problem
 from amf_tpu_torch.utils.linalg import cholesky_or_nan as _cholesky
 from amf_tpu_torch.utils.linalg import inverse_or_nan as _inverse
@@ -146,13 +152,15 @@ def _gram_products(
     mask: torch.Tensor, masked_r: torch.Tensor, other: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every lane's masked Gram and right-hand-side products, rows minor,
-    as the solve-and-sample kernel reads them.
+    as the solve-and-sample kernel reads them: the dense path.
 
     mask, masked_r (r, c) shared by all lanes, other (L, c, d). With
     p = d (d + 1) / 2: Gt (L, p + d, r) holds, for every row i, the packed
     lower triangle of sum_j mask_ij o_j o_j^T and then sum_j mask_ij o_j;
-    mrt (L, d, r) holds sum_j masked_r_ij o_j. Two matrix products; only
-    the p distinct products o_a o_b are formed.
+    mrt (L, d, r) holds sum_j masked_r_ij o_j. Two matrix products over
+    every cell of the mask; only the p distinct products o_a o_b are
+    formed. ``ops/gram_kernel.masked_gram`` gives the same from the rated
+    cells alone.
     """
     L, c, d = other.shape
     r = mask.shape[0]
@@ -179,6 +187,7 @@ def _sample_rows(
     center: Optional[torch.Tensor] = None,
     cells: Optional[Tuple[torch.Tensor, ...]] = None,
     chol_kernel: bool = True,
+    rows: Optional[gram_kernel.RatedRows] = None,
 ) -> torch.Tensor:
     """Draw all rows of one factor, for L lanes, from their conditionals.
 
@@ -191,11 +200,18 @@ def _sample_rows(
     normals; ``center`` (L,) is subtracted from every rating (the chain's
     mean rating). ``cells`` = (row, col, dm, dr), each (L,), adds lane l's
     one hypothesised cell: the mask rises by dm and mask * ratings by dr at
-    (row, col). The draw itself, with the assembly of S and the right-hand
-    side, is ``ops/chol_kernel.chol_gram_solve_sample``: ``chol_kernel``
-    picks its CUDA kernel or its plain version for CUDA tensors.
+    (row, col). With ``rows`` (the rated cells of these rows, indexed) the
+    masked Gram is summed over them (``ops/gram_kernel.masked_gram``) and
+    ``mask`` and ``masked_r`` are not read; without, it is the dense
+    product ``_gram_products``. The draw itself, with the assembly of S and
+    the right-hand side, is ``ops/chol_kernel.chol_gram_solve_sample``:
+    ``chol_kernel`` picks its CUDA kernel or its plain version for CUDA
+    tensors.
     """
-    Gt, mrt = _gram_products(mask, masked_r, other)
+    if rows is None:
+        Gt, mrt = _gram_products(mask, masked_r, other)
+    else:
+        Gt, mrt = gram_kernel.masked_gram(rows, other)
     return chol_gram_solve_sample(Gt, mrt, z, alpha, mu, beta, center, cells,
                                   other, kernel=chol_kernel)
 
@@ -236,19 +252,32 @@ def draw_round_noise(generators: Sequence[torch.Generator], n: int, m: int,
 
 
 class _Base(NamedTuple):
-    """The shared problem as the row draws read it, both orientations."""
+    """The shared problem as the row draws read it, both orientations: the
+    dense mask and masked ratings, or the rated-cell index."""
 
-    mask: torch.Tensor  # (n, m) 0/1 float
-    masked_r: torch.Tensor  # (n, m) rated * R_obs
-    mask_t: torch.Tensor  # (m, n)
-    masked_r_t: torch.Tensor
+    mask: Optional[torch.Tensor]  # (n, m) 0/1 float; None on the index path
+    masked_r: Optional[torch.Tensor]  # (n, m) rated * R_obs
+    mask_t: Optional[torch.Tensor]  # (m, n)
+    masked_r_t: Optional[torch.Tensor]
+    by_row: Optional[gram_kernel.RatedRows]  # U's rows (CSR); None if dense
+    by_col: Optional[gram_kernel.RatedRows]  # V's rows (CSC)
+    nnz: int  # rated cells
 
 
 def _base(problem: Problem, dtype) -> _Base:
-    mask = problem.rated.to(dtype)
-    masked_r = torch.where(problem.rated, problem.R_obs, 0.0).to(dtype)
+    """The dense form, or on the card below the crossover density
+    (``gram_kernel.use_index``) the index: built once a chain, as reading
+    the count and the index's ``nonzero`` synchronise the host."""
+    rated = problem.rated
+    nnz = int(rated.sum())
+    if gram_kernel.use_index(nnz, problem.shape, rated.device):
+        ix = rated_index(rated, problem.R_obs, dtype=dtype)
+        return _Base(None, None, None, None, *gram_kernel.index_sides(ix),
+                     nnz)
+    mask = rated.to(dtype)
+    masked_r = torch.where(rated, problem.R_obs, 0.0).to(dtype)
     return _Base(mask, masked_r, mask.t().contiguous(),
-                 masked_r.t().contiguous())
+                 masked_r.t().contiguous(), None, None, nnz)
 
 
 def _gibbs_round(chain: ChainState, base: _Base, cfg: GibbsConfig,
@@ -269,10 +298,10 @@ def _gibbs_round(chain: ChainState, base: _Base, cfg: GibbsConfig,
     for s in range(cfg.num_gibbs):
         U = _sample_rows(base.mask, base.masked_r, V, mu_u, alpha_u, cfg.beta,
                          noise.z_u[s], center=center, cells=cells_u,
-                         chol_kernel=chol_kernel)
+                         chol_kernel=chol_kernel, rows=base.by_row)
         V = _sample_rows(base.mask_t, base.masked_r_t, U, mu_v, alpha_v,
                          cfg.beta, noise.z_v[s], center=center, cells=cells_v,
-                         chol_kernel=chol_kernel)
+                         chol_kernel=chol_kernel, rows=base.by_col)
     return ChainState(U=U, V=V, mean_rating=chain.mean_rating)
 
 
@@ -322,7 +351,9 @@ def run_chain(
     counts of the discrete lookahead (reference: bayes_pmf._distribute
     :489-501). No (num_samps, n, m) tensor is formed: the sums of pred and
     pred^2 are accumulated in place. The chain is the span
-    ``gibbs.chain`` (its ``lanes`` and ``rounds``).
+    ``gibbs.chain`` (its ``lanes``, ``rounds``, ``gram_index``: 1 where the
+    row draws sum the masked Gram over the rated-cell index, 0 where they
+    take the dense product, and ``gram_nnz``, the rated cells).
     """
     with span("gibbs.chain", rounds=num_samps) as sp:
         single = chain.U.dim() == 2
@@ -332,9 +363,10 @@ def run_chain(
             generators = [generator]
         n, m = problem.shape
         L = chain.U.shape[0]
-        sp.set(lanes=L)
         dtype, device = chain.U.dtype, chain.U.device
         base = _base(problem, dtype)
+        sp.set(lanes=L, gram_index=int(base.by_row is not None),
+               gram_nnz=base.nnz)
         deltas = cells.deltas(problem) if cells is not None else None
         n_cut = len(cutoffs)
         cut = torch.as_tensor(cutoffs, dtype=dtype, device=device).reshape(

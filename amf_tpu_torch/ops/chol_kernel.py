@@ -16,11 +16,14 @@ entry points, each with a wrapper that counts its launches:
     buffers; ``chol_solve_sample_cuda`` puts (B, d, d) inputs into that
     layout;
   * ``chol_gram_solve_sample`` is what the Gibbs row draws call. It takes
-    the masked Gram products as the matrix products leave them (``Gt``, the
-    packed lower triangle of every row's Gram followed by mask @ other, and
-    ``mrt``, both row-minor) and the lane's prior and cell, and the kernel
-    assembles S and b itself (``chol_gram_solve_sample_cuda``): nothing is
-    transposed, unpacked or assembled in PyTorch.
+    the masked Gram products in the layout both of their paths leave them
+    (``Gt``, the packed lower triangle of every row's Gram followed by
+    mask @ other, and ``mrt``, both row-minor: the dense matrix products of
+    ``models/bpmf_gibbs._gram_products``, or the sums over the rated-cell
+    index of ``ops/gram_kernel.masked_gram``) and the lane's prior and
+    cell, and the kernel assembles S and b itself
+    (``chol_gram_solve_sample_cuda``): nothing is transposed, unpacked or
+    assembled in PyTorch.
 
 ``chol_solve_sample_reference`` is the plain PyTorch version with two back
 substitutions, as the JAX reference has; the two differ only in rounding.

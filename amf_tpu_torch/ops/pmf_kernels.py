@@ -149,9 +149,11 @@ class RatedIndex(NamedTuple):
 
 
 def rated_index(rated: torch.Tensor, R: torch.Tensor,
-                bf16: bool = False) -> RatedIndex:
+                bf16: bool = False,
+                dtype: Optional[torch.dtype] = None) -> RatedIndex:
     """Index the rated cells of ``rated`` (n, m), with R rounded to the
-    streaming dtype (bfloat16 with ``bf16``, else float32).
+    streaming dtype (bfloat16 with ``bf16``, else float32), or to ``dtype``
+    where given (the Gibbs chain's, ``ops/gram_kernel.py``).
 
     Built with torch ops; ``nonzero`` synchronises the host, so a refit
     builds it once a tile (``models/pmf.fit_lookahead_batch``) and not once
@@ -161,7 +163,7 @@ def rated_index(rated: torch.Tensor, R: torch.Tensor,
     n, m = rated.shape
     mask = rated.to(torch.bool)
     rows, cols = torch.nonzero(mask, as_tuple=True)  # row by row
-    r_row = R[rows, cols].to(_BF16 if bf16 else _F32)
+    r_row = R[rows, cols].to(dtype or (_BF16 if bf16 else _F32))
     # column by column, rows ascending: sort the cells by (column, row)
     csc_pos = torch.argsort(cols * n + rows)
 

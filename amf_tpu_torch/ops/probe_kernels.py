@@ -34,6 +34,17 @@ whether a longer queue of lanes hides the fused refit's slowest lane.
    the wrapper's CUDA-event time, the launch's device time by the
    profiler, and a hash of the outputs, so that two builds of a source can
    be held bit for bit against each other.
+5. ``csrc/masked_gram.cu``, the Gibbs row draws' masked Gram from the
+   rated-cell index (``--gram`` runs this section alone): ``ptxas -v`` of
+   its d = 20 instantiations and its library's nvcc seconds; at the two
+   configurations' tile shapes (160 lanes on 943 x 1682 with 5,000 rated
+   cells, 512 lanes on 70 x 306 with 400; d = 20), each side, float32 and
+   float64: the kernel's CUDA-event and profiled device time beside its
+   byte bound, its plain version, and the dense matrix product it replaces
+   (``bpmf_gibbs._gram_products``, the ``library_ms`` yardstick), with the
+   relative gaps; then the crossover: both sides' kernel and dense times
+   at 160 lanes, 943 x 1682, d = 20, over densities from 0.3 % to 100 %,
+   in float32 and in float64.
 
 Prints one JSON line per result; needs a CUDA card and nvcc.
 """
@@ -47,6 +58,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -365,6 +377,153 @@ def wide_kernels(dev):
     return rows
 
 
+# (lanes, n, m, rated cells) of the two configurations' lookahead tiles
+GRAM_CELLS = {"ml100k": (160, 943, 1682, 5000),
+              "db70x306": (512, 70, 306, 400)}
+GRAM_D = 20
+GRAM_DENSITIES = (0.00315, 0.01, 0.03, 0.1, 0.2, 0.3, 0.5, 0.75, 1.0)
+
+
+def uniform_mask(dev, n, m, nnz, seed=0):
+    """-> (rated (n, m) bool, R (n, m)): ``nnz`` rated cells drawn
+    uniformly, ratings 1..5."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randperm(n * m, generator=gen, device=dev)[:nnz]
+    rated = torch.zeros(n * m, dtype=torch.bool, device=dev)
+    rated[flat] = True
+    R = torch.randint(1, 6, (n, m), generator=gen, device=dev)
+    return rated.reshape(n, m), R
+
+
+def _gram_inputs(dev, L, rated, R, d, dtype, seed=0):
+    """Both sides of the mask ``rated`` with ratings R as the chain reads
+    them, dense and indexed, with L lanes of factors of width d."""
+    from amf_tpu_torch.ops import gram_kernel, pmf_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, m = rated.shape
+    R = R.to(dtype)
+    by_row, by_col = gram_kernel.index_sides(
+        pmf_kernels.rated_index(rated, R, dtype=dtype))
+    mask = rated.to(dtype)
+    masked_r = torch.where(rated, R, 0.0)
+    U = torch.randn(L, n, d, generator=gen, dtype=dtype, device=dev)
+    V = torch.randn(L, m, d, generator=gen, dtype=dtype, device=dev)
+    return {"U": (mask, masked_r, V, by_row),
+            "V": (mask.t().contiguous(), masked_r.t().contiguous(), U,
+                  by_col)}
+
+
+def _gram_bound_ms(L, r, c, nnz, d, size):
+    """Bytes over 3.35 TB/s: Gt and mrt written once, the index, the
+    ratings and every lane's ``other`` read once."""
+    p = d * (d + 1) // 2
+    n_bytes = (L * (p + 2 * d) * r + nnz + L * c * d) * size + (
+        r + 1 + nnz) * 4
+    return n_bytes / 3.35e12 * 1e3
+
+
+def _device_ms_or_none(fn, name_part):
+    """``device_ms``, or None where the profiler saw no launch (it now and
+    then records nothing of a window)."""
+    try:
+        return device_ms(fn, name_part)
+    except RuntimeError:
+        return None
+
+
+def gram_cell_rows(dev, cells=None, d=GRAM_D,
+                   dtypes=(torch.float32, torch.float64)):
+    """The masked-Gram kernel at width d on ``cells`` (name -> (lanes,
+    rated (n, m) bool, ratings (n, m))), by default the two configurations'
+    tile shapes on uniform masks; each side: its times beside its bound,
+    its plain version and the dense product it replaces, and its relative
+    gaps to both (also ``chip_smoke.py``'s phase 2 and kernel row)."""
+    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.ops import gram_kernel
+
+    def rel(a, b):
+        return max(float((x - y).norm() / y.norm()) for x, y in zip(a, b))
+
+    if cells is None:
+        cells = {name: (L, *uniform_mask(dev, n, m, nnz))
+                 for name, (L, n, m, nnz) in GRAM_CELLS.items()}
+    rows = []
+    for cell, (L, rated, R) in cells.items():
+        nnz = int(rated.sum())
+        for dtype in dtypes:
+            sides = _gram_inputs(dev, L, rated, R, d, dtype)
+            for side, (mask, masked_r, other, idx) in sides.items():
+                r, c = mask.shape
+                launches = gram_kernel.masked_gram_cuda.launches
+                got = gram_kernel.masked_gram(idx, other)
+                plain = gram_kernel.masked_gram(idx, other, kernel=False)
+                dense = bpmf_gibbs._gram_products(mask, masked_r, other)
+                row = dict(
+                    section="gram", cell=cell, side=side,
+                    dtype=str(dtype)[6:], L=L, r=r, c=c, d=d, nnz=nnz,
+                    rel_vs_plain=rel(got, plain), rel_vs_dense=rel(got, dense),
+                    launches=gram_kernel.masked_gram_cuda.launches - launches,
+                    ms=cuda_ms(lambda: gram_kernel.masked_gram(idx, other)),
+                    device_ms=_device_ms_or_none(
+                        lambda: gram_kernel.masked_gram(idx, other),
+                        "masked_gram_rows_kernel"),
+                    bound_ms=_gram_bound_ms(L, r, c, nnz, d,
+                                            other.element_size()),
+                    plain_ms=cuda_ms(lambda: gram_kernel.masked_gram(
+                        idx, other, kernel=False), 5),
+                    library_ms=cuda_ms(lambda: bpmf_gibbs._gram_products(
+                        mask, masked_r, other), 10))
+                rows.append(row)
+                print("gram " + json.dumps(row), flush=True)
+                del got, plain, dense
+            del sides
+            torch.cuda.empty_cache()
+    return rows
+
+
+def gram_section(dev):
+    """Section 5 of the module docstring -> its rows."""
+    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.ops import gram_kernel
+
+    rows = []
+    defines = cuda_build.width_defines("masked_gram", GRAM_D)
+    t0 = time.perf_counter()
+    cuda_build.build("masked_gram", defines)
+    build_s = time.perf_counter() - t0
+    ptx = ptxas("masked_gram", defines,
+                cuda_build.BUILD_DIR / "probe" / f"masked_gram-d{GRAM_D}.so")
+    rows.append(dict(section="gram_ptxas", build_s=build_s, kernels=[
+        (r["kernel"][-48:], r["registers"], r["spill_stores"],
+         r["spill_loads"]) for r in ptx]))
+    print("gram " + json.dumps(rows[-1]), flush=True)
+    rows += gram_cell_rows(dev)
+
+    # the crossover density, in both dtypes
+    L, n, m, _ = GRAM_CELLS["ml100k"]
+    for dtype in (torch.float32, torch.float64):
+        for density in GRAM_DENSITIES:
+            nnz = int(round(density * n * m))
+            sides = _gram_inputs(dev, L, *uniform_mask(dev, n, m, nnz),
+                                 GRAM_D, dtype)
+            row = dict(section="gram_crossover", dtype=str(dtype)[6:],
+                       density=density, nnz=nnz)
+            for side, (mask, masked_r, other, idx) in sides.items():
+                row[f"{side}_index_ms"] = cuda_ms(
+                    lambda: gram_kernel.masked_gram(idx, other), 10)
+                row[f"{side}_dense_ms"] = cuda_ms(
+                    lambda: bpmf_gibbs._gram_products(mask, masked_r, other),
+                    10)
+            row["index_ms"] = row["U_index_ms"] + row["V_index_ms"]
+            row["dense_ms"] = row["U_dense_ms"] + row["V_dense_ms"]
+            rows.append(row)
+            print("gram " + json.dumps(row), flush=True)
+            del sides
+            torch.cuda.empty_cache()
+    return rows
+
+
 def probe_sections_1_to_3(dev, results):
     """Sections 1 to 3 of the module docstring, into ``results``."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -412,6 +571,9 @@ def main(argv=None) -> int:
     ap.add_argument("--wide-only", action="store_true",
                     help="run section 4 (the PMF kernels at d = 48) alone, "
                          "with ptxas -v of their d = 48 libraries")
+    ap.add_argument("--gram", action="store_true",
+                    help="run section 5 (the masked Gram from the index) "
+                         "alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -422,7 +584,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     results = dict(card=card, ptxas=[], chol=[])
     dev = torch.device("cuda")
-    if args.wide_only:
+    if args.gram:
+        results["gram"] = gram_section(dev)
+    elif args.wide_only:
         pmf_sources = SOURCES[:1] + SOURCES[2:]
         with ThreadPoolExecutor(6) as pool:
             futs = [pool.submit(summary, s, WIDE_D) for s in pmf_sources]
@@ -433,7 +597,9 @@ def main(argv=None) -> int:
                 print("ptxas " + json.dumps(results["ptxas"][-1]), flush=True)
     else:
         probe_sections_1_to_3(dev, results)
-    results["wide"] = wide_kernels(dev)
+    if not args.gram:
+        results["wide"] = wide_kernels(dev)
+        results["gram"] = gram_section(dev)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

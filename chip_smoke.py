@@ -306,6 +306,9 @@ FUSED_KERNEL_TOL = dict(f=1e-4, factors=1e-4, factors_long=1e-3,
 # (readings: 127 and 127)
 SAME_COUNT_MIN = 120
 POLY_RTOL = 1e-4  # f32 poly kernel tile vs plain tile
+# the masked Gram from the rated-cell index against its plain version,
+# relative Frobenius (other summation orders of the same products)
+GRAM_INDEX_RTOL = {"float32": 1e-5, "float64": 1e-12}
 # a poly-LS budget at the CLI's values where rungs are rejected (at 8 steps
 # none is) and summation order has moved few lanes (at 200, 20 of 128)
 POLY_LADDER_STEPS = 40
@@ -3018,9 +3021,13 @@ def bench_phase(device, card):
     check(set(counts["b2"]) == {"L,d,rows/torch.bfloat16"}
           and counts["b2_plain"] == 0 and counts["b2_global"] == 0,
           f"the refit row's value+gradient launches: {counts}")
-    check(counts["index_builds"] == 2 * refit["tiles"],
+    # one index build a refit tile of each sweep, and one a Gibbs chain (the
+    # headline's base chain and each tile's lane chain sum their masked Gram
+    # over it)
+    chains = 1 + head["tiles_run"]
+    check(counts["index_builds"] == 2 * refit["tiles"] + chains,
           f"{counts['index_builds']} index builds for two sweeps of "
-          f"{refit['tiles']} refit tiles")
+          f"{refit['tiles']} refit tiles and {chains} Gibbs chains")
     return line, rows, counts
 
 
@@ -3045,7 +3052,9 @@ def main() -> int:
     from amf_tpu_torch.data.loaders import save_npz_schema
     from amf_tpu_torch.ops import chol_kernel as ck
     from amf_tpu_torch.ops import cuda_build
+    from amf_tpu_torch.ops import gram_kernel as gk
     from amf_tpu_torch.ops import pmf_kernels as pk
+    from amf_tpu_torch.ops import probe_kernels
     from amf_tpu_torch.run import add_rmse_boosts
     from amf_tpu_torch.utils.platform import resolve_device
 
@@ -3062,8 +3071,9 @@ def main() -> int:
     # (source, width): every source at the main paths' d = 10 and at
     # d = 48, which is a library of its own; the fused line search also at
     # d = 32 (phase 11)
-    widths = [(src, d) for src in ("chol_solve_sample", "pmf_value_grad",
-                                   "pmf_line_coeffs", "pmf_lookahead_fused")
+    widths = [(src, d) for src in ("chol_solve_sample", "masked_gram",
+                                   "pmf_value_grad", "pmf_line_coeffs",
+                                   "pmf_lookahead_fused")
               for d in (D, WIDE_D)] + [("pmf_lookahead_fused", 32)]
     libraries = [(src, cuda_build.width_defines(src, d)) for src, d in widths]
 
@@ -3077,6 +3087,8 @@ def main() -> int:
     for (src, d), lib in zip(widths, libraries):
         if src == "chol_solve_sample":
             ck._entry_points(d)
+        elif src == "masked_gram":
+            gk._entry_points(d)
         else:
             pk._entry_point(*lib)
     # a CLI run pays a library's seconds at its first use of a source, and
@@ -3102,6 +3114,21 @@ def main() -> int:
     gram = gram_rows(device)
     gram_row = next(r for r in gram if r["dtype"] == "float32"
                     and r["r"] == M and r["L"] == TILE * len(VALS))
+    # the masked Gram from the rated-cell index, kernel against its plain
+    # version and the dense product it replaces: at the main paths' d = 10
+    # on the bench's own mask and tile (its own library), and at the
+    # benchmark cells' shapes (d = 20)
+    bench_prob = bench_rows["problem"][2]
+    gram_index = probe_kernels.gram_cell_rows(
+        device, {"bench": (TILE * len(VALS), bench_prob.rated,
+                           bench_prob.R_obs)}, d=D)
+    gram_index += probe_kernels.gram_cell_rows(device)
+    for r in gram_index:
+        check(r["launches"] == 1 and r["rel_vs_plain"]
+              <= GRAM_INDEX_RTOL[r["dtype"]],
+              f"the index Gram kernel disagrees with its plain version: {r}")
+    gram_index_row = next(r for r in gram_index if r["cell"] == "bench"
+                          and r["side"] == "V" and r["dtype"] == "float32")
 
     stamp("3")
     # ---- 3. the f32 lookahead tile at the bench shape: the bench's
@@ -3177,6 +3204,7 @@ def main() -> int:
     prob_pool = types.problem_from_dense(real, known, queryable=pool,
                                          dtype=torch.float32, device=device)
     before = ck.chol_gram_solve_sample_cuda.launches
+    index_before = gk.masked_gram_cuda.launches
     t0 = time.perf_counter()
     res = run_active_gibbs(
         prob_pool, real, ["exp-variance"], latent_d=D, rating_values=VALS,
@@ -3187,6 +3215,11 @@ def main() -> int:
     loop_s = time.perf_counter() - t0
     loop_launches = ck.chol_gram_solve_sample_cuda.launches - before
     main_launches = ck.chol_gram_solve_sample_cuda.launches
+    index_launches = gk.masked_gram_cuda.launches - index_before
+    # the problem's 0.3 % density takes the index Gram: one launch a draw
+    check(index_launches == loop_launches,
+          f"the active loop's {loop_launches} row draws launched the index "
+          f"Gram {index_launches} times")
     plain_calls = ck.chol_solve_sample_reference.calls
     recs = res["exp-variance"]
     picks = [r[2] for r in recs[1:]]
@@ -3931,6 +3964,10 @@ def main() -> int:
         **{k: gram_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "gram_to_x_ms", "gram_to_x_assembled_ms")},
         "library_ms": None,
+        # the products it reads, from the rated-cell index in place of the
+        # dense product, at its own shape (the bench tile's V draw)
+        "index_gram_ms": gram_index_row["ms"],
+        "dense_gram_ms": gram_index_row["library_ms"],
         "d48": wide_row(
             dict(gram_wide, max_abs_err=max(
                 r["max_abs_err"] for r in gram + kern if r["d"] == WIDE_D)),
@@ -3941,6 +3978,19 @@ def main() -> int:
             "plain_ms": main_row["plain_ms"], "bound_ms": chol_bound[0],
             "bound_by": chol_bound[1]},
     },
+    {
+        # no Pallas kernel: the JAX package leaves the Gibbs draws' masked
+        # Gram to XLA as a dense product of the mask, which it replaces on
+        # the card below the crossover density; launches over phase 4's
+        # loop and times at the bench tile's V draw, both at d = 10
+        "name": "masked_gram (rated-cell index)", "route": "cuda",
+        "source": "amf_tpu_torch/csrc/masked_gram.cu", "replaces": None,
+        "launches": index_launches,
+        "max_rel_err": max(r["rel_vs_plain"] for r in gram_index),
+        **{k: gram_index_row[k] for k in ("L", "r", "d", "ms", "device_ms",
+                                          "plain_ms", "bound_ms",
+                                          "library_ms")},
+        "bound_by": "bytes"},
         vg_entry("L,rows,d", "float32", b4,
                  cli_launches[("L,rows,d", "torch.float32")]),
         vg_entry("L,d,rows", "float32", b2,

@@ -23,6 +23,8 @@ from amf_tpu_torch import convert
 from amf_tpu_torch import types as ttypes
 from amf_tpu_torch.models import bpmf_gibbs as tbg
 from amf_tpu_torch.models import pmf as tpmf
+from amf_tpu_torch.ops import gram_kernel
+from amf_tpu_torch.ops.pmf_kernels import rated_index
 from amf_tpu_torch.ops.quadrature import normal_trapezoid_grid
 from amf_tpu_torch.utils.rng import generator, lane_generators
 
@@ -166,10 +168,20 @@ def test_sample_hyperparam_matches_jax_with_its_draws():
     np.testing.assert_allclose(tmu.numpy(), np.asarray(mu), rtol=RTOL)
 
 
-def test_sample_rows_matches_jax_with_its_draws(case):
+@pytest.mark.parametrize("path", ["dense", "index"])
+def test_sample_rows_matches_jax_with_its_draws(case, path):
     """Plain rows, and lanes whose cell and mean are patched onto the shared
-    base, equal JAX's draw on each lane's own (copied) problem."""
+    base, equal JAX's draw on each lane's own (copied) problem, with the
+    masked Gram from the dense product or summed over the rated-cell index
+    (the plain version, on the CPU)."""
     jprob, jst, tprob = case["jprob"], case["jst"], case["tprob"]
+
+    def rows(R, side):
+        if path == "dense":
+            return None
+        return gram_kernel.index_sides(rated_index(
+            tprob.rated, R, dtype=torch.float64))[side]
+
     rng = np.random.default_rng(2)
     mu = rng.normal(size=2)
     a = rng.normal(size=(2, 2))
@@ -181,7 +193,8 @@ def test_sample_rows_matches_jax_with_its_draws(case):
                             jnp.asarray(alpha), 2.0)
     mask = tprob.rated.double()
     got = tbg._sample_rows(mask, mask * _t(r_c), _t(jst.V)[None],
-                           _t(mu)[None], _t(alpha)[None], 2.0, z[None])
+                           _t(mu)[None], _t(alpha)[None], 2.0, z[None],
+                           rows=rows(_t(r_c), 0))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=RTOL)
 
     q = np.argwhere(np.asarray(jprob.queryable))[:2]
@@ -196,7 +209,7 @@ def test_sample_rows_matches_jax_with_its_draws(case):
         mask.T.contiguous(), (mask * tprob.R_obs).T.contiguous(),
         _t(jst.U).expand(2, 6, 2), _t(mu).expand(2, 2),
         _t(alpha).expand(2, 2, 2), 2.0, zs, center=center,
-        cells=(lanes.j, lanes.i, dm, dr))
+        cells=(lanes.j, lanes.i, dm, dr), rows=rows(tprob.R_obs, 1))
     for l, ((i, j), v) in enumerate(zip(q, [3.0, 1.0])):
         p2 = jprob.add_rating(int(i), int(j), v)
         want = jbg._sample_rows(keys[l], p2.rated.T,
@@ -254,8 +267,15 @@ def test_sample_rows_takes_strided_noise_and_expanded_factors(case):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_gibbs_round_matches_jax_with_its_draws(case):
+@pytest.mark.parametrize("path", ["dense", "index"])
+def test_gibbs_round_matches_jax_with_its_draws(case, path, monkeypatch):
+    """Lanes with their cells, one round each, against JAX's round on each
+    lane's own problem; the index path forced on the CPU sums the masked
+    Gram with the plain version, once a half sweep."""
     jprob, jst, gcfg, tprob = case["jprob"], case["jst"], case["gcfg"], case["tprob"]
+    if path == "index":
+        monkeypatch.setattr(gram_kernel, "use_index", lambda *a: True)
+    calls = gram_kernel.masked_gram_plain.calls
     q = np.argwhere(np.asarray(jprob.queryable))[[1, 3]]
     vals = [2.0, 0.0]
     keys = list(jax.random.split(jax.random.PRNGKey(8), 2))
@@ -265,6 +285,8 @@ def test_gibbs_round_matches_jax_with_its_draws(case):
                            lanes.mean_rating(tprob))
     noise = _round_noise(keys, 6, 5, gcfg)
     got = tbg.gibbs_round(chain, tprob, case["tg"], noise, cells=lanes)
+    assert gram_kernel.masked_gram_plain.calls - calls == (
+        2 * gcfg.num_gibbs if path == "index" else 0)
     for l, ((i, j), v) in enumerate(zip(q, vals)):
         p2 = jprob.add_rating(int(i), int(j), v)
         jchain = jbg.init_chain(jpmf.refresh_mean_rating(jst, p2))

@@ -195,7 +195,9 @@ def test_a_lookahead_tile_is_one_tree_of_spans():
     assert (tile.name, fit.name, chain.name) == (
         "lookahead.tile", "pmf.fit", "gibbs.chain")
     assert fit.parent == chain.parent == tile.id
-    assert chain.attrs == {"rounds": 3, "lanes": 15}
+    # the CPU keeps the dense product of the mask
+    assert chain.attrs == {"rounds": 3, "lanes": 15, "gram_index": 0,
+                           "gram_nnz": int(prob.rated.sum())}
     assert [s.name for s in noise] == ["gibbs.noise"] * 3
     assert {s.parent for s in noise} == {chain.id}
     assert {s.root for s in recs} == {tile.id}
@@ -272,3 +274,12 @@ def test_span_reader_on_a_traced_cut_down_cell(metric, traced_cells):
         assert np.isfinite(got["value"])
     else:  # stream events and the device trace need the card
         assert got is None
+
+
+def test_gram_index_reader_on_a_traced_cut_down_cell(traced_cells):
+    """The share of lane chains on the index Gram: 0 on the CPU, where the
+    chains take the dense product (the card takes the index)."""
+    line, recs = traced_cells["ml100k-bpmf-d20.expvar-tiles"]
+    chains = [s for s in recs if s.name == "gibbs.chain"]
+    assert chains and all(s.attrs["gram_index"] == 0 for s in chains)
+    assert line["metrics"]["lookahead_gram_index_pct"]["value"] == 0.0
