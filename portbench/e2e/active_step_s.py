@@ -1,7 +1,9 @@
-"""active_step_s: the window's time over the steps it completed."""
+"""active_step_s: the window's time over the steps it completed, in the
+cells whose loop runs one active step a unit (``unit_counts``,
+``portbench/loops.py``)."""
 
 
 def read(r):
-    if r.loop.kind != "active_steps":
+    if r.loop.unit_counts != "steps":
         return None
     return r.window.seconds / r.window.units

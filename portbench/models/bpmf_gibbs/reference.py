@@ -1,4 +1,4 @@
-"""Plain PyTorch reference of what the benchmark's cells run.
+"""Plain PyTorch reference of what the ``bpmf_gibbs`` family's cells run.
 
 Bayesian PMF by Gibbs sampling (Salakhutdinov and Mnih, ICML 2008) with
 the active-learning steps of the reference code (python-pmf,

@@ -4,24 +4,28 @@
 
 The cell is looked up by name in ``BENCHMARK.json`` at the checkout's
 root; its configuration file, its traffic file
-(``portbench/traffic/<traffic>.json``) and the reader of each of its
-metrics (``portbench/e2e/<name>.py``, ``portbench/metrics/<name>.py``)
-are found by their names. A run:
+(``portbench/traffic/<traffic>.json``), its model family (the
+configuration's ``model``: ``portbench/models/<model>/``, ``family``), its
+loop (the traffic's ``loop``, one of the family's ``LOOPS``) and the
+reader of each of its metrics (``portbench/e2e/<name>.py``,
+``portbench/metrics/<name>.py``) are found by their names. A run:
 
   1. refuses without enough CUDA cards (exit 3, no result); runs torch
      on one host thread, with Python's bytecode cached in
      ``build/pycache/`` of the checkout;
-  2. set-up: makes the inputs from ``--seed`` (``portbench/data.py``),
-     builds the port's problem, MAP fit and base chain, runs one warm
+  2. set-up: makes the inputs from the configuration
+     (``portbench/data.py``), starts the family's loop on the device (the
+     port's problem and the state its first unit needs), runs one warm
      unit of the cell's own shapes, and freezes the set-up's objects out
      of the garbage collector's reach; ``setup_s`` runs from the process's
      start to the first timed unit, and standard error gives its phases;
   3. the window: units back to back until the first that ends at or after
-     ``--seconds`` (``portbench/loops.py``);
+     ``--seconds`` (``portbench/loops.py``, which gives a loop's contract);
   4. with ``--trace 1``, ``trace_units`` more units under the profiler
      (``portbench/trace.py``), after the window;
   5. reads the peak memory, frees the port's state, and checks the
-     outputs against the plain reference (``portbench/check.py``);
+     outputs against the family's plain reference (the loop's ``check``,
+     judged by ``portbench/check.py``);
   6. prints the compared numbers beside their limits on standard error,
      then the result line on standard output: the end-to-end metrics, or
      with ``--trace 1`` the per-layer ones, and under ``checks``, last,
@@ -37,6 +41,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import importlib.util
 import json
 import os
@@ -97,21 +102,48 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
         per_layer=[m for m in man["per_layer"] if _applies(m, workload)])
 
 
-def reader(kind: str, name: str):
-    """The ``read`` function of ``portbench/<kind>/<name>.py``."""
-    path = HERE / kind / f"{name}.py"
+def named(folder: str, name: str, attr: str):
+    """``attr`` of ``portbench/<folder>/<name>.py``, loaded from its path."""
+    path = HERE / folder / f"{name}.py"
+    if not path.is_file():
+        raise LookupError(f"no {name!r} in portbench/{folder}/: "
+                          f"portbench/{folder}/{name}.py is not a file")
     spec = importlib.util.spec_from_file_location(
-        f"portbench_{kind}_{name.replace('.', '_')}", path)
+        f"portbench_{folder}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return getattr(mod, attr)
+
+
+def reader(kind: str, name: str):
+    """The ``read`` function of ``portbench/<kind>/<name>.py``."""
+    return named(kind, name, "read")
+
+
+def family(model: str):
+    """The model family ``portbench/models/<model>/`` (see ``loops.py``)."""
+    path = HERE / "models" / model / "__init__.py"
+    if not (model.isidentifier() and path.is_file()):
+        raise LookupError(f"no model family {model!r}: portbench/models/"
+                          f"{model}/__init__.py is not a file")
+    return importlib.import_module(f"portbench.models.{model}")
+
+
+def member(fam, table: str, name: str):
+    """``fam.<table>[name]``, or an error that names the family's file."""
+    got = getattr(fam, table, {})
+    if name not in got:
+        where = fam.__name__.replace(".", "/") + "/__init__.py"
+        raise LookupError(f"no {name!r} in {table} of {where} (it has "
+                          f"{sorted(got)})")
+    return got[name]
 
 
 @dataclasses.dataclass
 class Reading:
     """What the readers of a run's metrics read."""
 
-    loop: object  # the traffic's loop (loops.LOOPS), its port state freed
+    loop: object  # the cell's loop (see loops.py), its port state freed
     config: dict
     traffic: dict
     device_name: str
@@ -144,12 +176,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     from portbench.trace import capture
 
     cuda = device.type == "cuda"
+    Loop = member(family(cell.config["model"]), "LOOPS", cell.traffic["loop"])
     s = loops.Setting(cell.config, cell.traffic, seed, device)
     inputs = make_inputs(cell.config)
     mark("inputs")
-    loop = loops.LOOPS[cell.traffic["loop"]](s, inputs)
+    loop = Loop(s, inputs)
     loops.sync(device)
-    mark("start")  # the problem on the card, MAP fit, base chain
+    mark("start")  # the family's start: the problem on the card, its state
     loop.warm()
     loops.sync(device)
     mark("warm")

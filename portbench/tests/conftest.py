@@ -8,6 +8,7 @@ size the CPU runs in seconds; its limits are the traffic file's.
 """
 
 import copy
+import dataclasses
 
 import pytest
 import torch
@@ -39,8 +40,7 @@ def tiny_cell(workload: str) -> run.Cell:
     t = copy.deepcopy(cell.traffic)
     if "tile_candidates" in t:
         t["tile_candidates"] = 4
-    return run.Cell(workload, c, t, cell.chips, cell.end_to_end,
-                    cell.per_layer)
+    return dataclasses.replace(cell, config=c, traffic=t)
 
 
 @pytest.fixture

@@ -8,8 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import control, loops, run
+from portbench import loops, run
 from portbench.data import make_inputs
+from portbench.models import bpmf_gibbs as gibbs
 from portbench.tests.conftest import SEED, WORKLOADS, tiny_cell
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
@@ -42,11 +43,11 @@ def test_steps_follow_drive_active(cpu):
     cell = tiny_cell("ml100k-bpmf-d20.predvar-steps")
     inputs = make_inputs(cell.config)
     s = loops.Setting(cell.config, cell.traffic, SEED, cpu)
-    steps = loops.ActiveSteps(s, inputs)
+    steps = gibbs.ActiveSteps(s, inputs)
     K = 5
     for _ in range(K):
         steps.unit()
-    prob, family, state0 = loops.family_setup(s, inputs)
+    prob, family, state0 = gibbs.family_setup(s, inputs)
     want = drive_active(prob, inputs.real, ["pred-variance"], family, state0,
                         SEED, steps=K + 1)["pred-variance"]
     assert len(want) == len(steps.records) == K + 1
@@ -64,14 +65,14 @@ def test_tiles_refuse_another_criterion(cpu):
     cell.traffic["criterion"] = "exp-entropy-est"
     s = loops.Setting(cell.config, cell.traffic, SEED, cpu)
     with pytest.raises(ValueError, match="exp-entropy-est"):
-        loops.LookaheadTiles(s, make_inputs(cell.config))
+        gibbs.LookaheadTiles(s, make_inputs(cell.config))
 
 
 @pytest.mark.parametrize("width", [4, 32, 256])
 def test_tile_sample_covers_every_quarter(width):
     """However the seed falls, the candidates checked come from both
     halves of the tiles and from even and odd positions."""
-    from portbench import check
+    from portbench.models.bpmf_gibbs import check
 
     groups = [check.quarter(k, width) for _ in range(3) for k in range(width)]
     for seed in range(50):
@@ -110,7 +111,7 @@ def test_tile_faults_fail_the_check(workload, fault, cpu, monkeypatch):
 @pytest.mark.parametrize("fault", ["state_unchanged", "answer_altered",
                                    "refit_skipped"])
 def test_step_faults_fail_the_check(fault, cpu, monkeypatch):
-    real = loops.family_setup
+    real = gibbs.family_setup
 
     def broken(s, inputs):
         prob, family, state0 = real(s, inputs)
@@ -124,11 +125,11 @@ def test_step_faults_fail_the_check(fault, cpu, monkeypatch):
     workload = "ml100k-bpmf-d20.predvar-steps"
     assert _run(workload, cpu)["correct"] is True
     if fault == "refit_skipped":  # the MAP not refitted, the chain redrawn
-        with control.refit_skipped():
+        with gibbs.refit_skipped():
             out = _run(workload, cpu)
         gap = out["checks"]["refit_gap"]
         assert gap["value"] > gap["limit"]
     else:
-        monkeypatch.setattr(loops, "family_setup", broken)
+        monkeypatch.setattr(gibbs, "family_setup", broken)
         out = _run(workload, cpu)
     assert out["correct"] is False

@@ -4,7 +4,7 @@ over one tile or two steps. Marked ``cuda``: TF32 exists only there."""
 
 import pytest
 
-from portbench import control, run
+from portbench import run
 from portbench.tests.conftest import SEED, WORKLOADS
 
 
@@ -13,8 +13,8 @@ from portbench.tests.conftest import SEED, WORKLOADS
 def test_control_fails_the_check(workload, cuda_device):
     cell = run.load_cell(workload)
     limits = cell.traffic["check"]["limits"]
-    if cell.traffic["loop"] == "lookahead_tiles":
-        nums = control.control_tiles(cell, SEED, cuda_device, 1)
-    else:
-        nums = control.control_steps(cell, SEED, cuda_device, 2)
+    control = run.member(run.family(cell.config["model"]), "CONTROLS",
+                         cell.traffic["loop"])
+    units = 1 if cell.traffic["loop"] == "lookahead_tiles" else 2
+    nums = control(cell, SEED, cuda_device, units)
     assert any(v > limits[k] for k, v in nums.items()), nums

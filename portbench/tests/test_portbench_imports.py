@@ -42,7 +42,7 @@ def _imports(path: Path):
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for name in ("reference.py", "seeds.py", "counts.py"):
+    for name in ("models/bpmf_gibbs/reference.py", "seeds.py", "counts.py"):
         tops = {m.split(".")[0] for m in _imports(PKG / name)}
         assert tops <= {"__future__", "contextlib", "dataclasses", "typing",
                         "numpy", "torch", "zlib", "portbench"}, (name, tops)
