@@ -382,16 +382,51 @@ def fit_lookahead_batch(
     takes the proposal loop, as in the JAX package. On CUDA tensors the
     kernel paths launch the CUDA kernels (the JAX name ``use_pallas`` is
     kept), on one index of the rated cells built here, once a call.
-    Returns (U (L, n, d), V (L, m, d), neg_ll (L,)), float32. Assumes
-    subtract_mean=False, as the JAX function does.
+    Returns (U (L, n, d), V (L, m, d), neg_ll (L,)), float32, the kernels'
+    type; from a float64 state on CPU tensors outside the lane-blocked
+    routes, float64 through the plain version (the wrappers' plain dispatch
+    would take it to float32). Assumes subtract_mean=False, as the JAX
+    function does.
+
+    The span ``pmf.refit_batch`` holds the refit (``lanes``, ``route``:
+    ``fused``, ``poly``, ``value_grad_t``, ``value_grad`` or ``plain``,
+    ``max_steps``; on the proposal loop ``passes``, ``proposals`` and
+    ``accepts``, the last two the lanes' means).
     """
+    if fused and lane_block:
+        route = "fused"
+    elif poly_ls:
+        route = "poly"
+    else:
+        route = ("value_grad_t" if lane_block else
+                 "value_grad" if use_pallas else "plain")
+    with span("pmf.refit_batch", lanes=int(delta_i.shape[0]), route=route,
+              max_steps=max_steps) as sp:
+        U, V, f, info = _refit_batch(
+            state, problem, delta_i, delta_j, delta_v, cfg, max_steps,
+            use_pallas, block_rows, bf16, lane_block, fused, poly_ls)
+        if info is not None:
+            sp.set(passes=info.loop_iters, proposals=info.n_iters,
+                   accepts=info.n_accepts)
+    return U, V, f
+
+
+def _refit_batch(state, problem, delta_i, delta_j, delta_v, cfg, max_steps,
+                 use_pallas, block_rows, bf16, lane_block, fused, poly_ls):
+    """The body of ``fit_lookahead_batch``: (U, V, f, DescentInfo or
+    None)."""
     from amf_tpu_torch.ops import pmf_kernels as pk
 
     L = delta_i.shape[0]
     n, m = problem.shape
     f32 = torch.float32
+    f64 = state.U.dtype == torch.float64
+    if f64 and (problem.R_obs.is_cuda or lane_block):
+        raise ValueError("a float64 refit runs the plain version on CPU "
+                         "tensors, without lane blocks")
+    dtype = torch.float64 if f64 else f32
     sigmas = torch.stack(
-        [state.sigma_sq, state.sigma_u_sq, state.sigma_v_sq]).to(f32)
+        [state.sigma_sq, state.sigma_u_sq, state.sigma_v_sq]).to(dtype)
     args = (problem.R_obs, problem.rated, delta_i, delta_j, delta_v, sigmas)
     # the kernels' walk of the rated cells, indexed once for the whole refit
     # (it synchronises the host); the plain versions on the CPU take none
@@ -406,26 +441,28 @@ def fit_lookahead_batch(
             state.U.mT.to(f32), state.V.mT.to(f32), *args, ls_params,
             max_steps=max_steps, block_rows=block_rows,
             lanes_per_block=lane_block, bf16=bf16, index=index)
-        return Ut.mT, Vt.mT, f
+        return Ut.mT, Vt.mT, f, None
     if poly_ls and not lane_block:
         raise ValueError("poly_ls requires lane_block > 0")
     if lane_block:
         fn, kw = pk.pmf_batched_value_grad_t, dict(
             block_rows=block_rows, lanes_per_block=lane_block, bf16=bf16)
-    elif use_pallas:
+    elif use_pallas and not f64:
         fn, kw = pk.pmf_batched_value_grad, dict(block_rows=block_rows,
                                                  bf16=bf16)
     else:
         fn, kw = pk.pmf_batched_value_grad_reference, {}
-    vg_kw = dict(kw, index=index) if lane_block or use_pallas else kw
+    vg_kw = dict(kw, index=index) if fn is not \
+        pk.pmf_batched_value_grad_reference else kw
 
-    U0 = state.U.to(f32).expand(L, n, cfg.latent_d)
-    V0 = state.V.to(f32).expand(L, m, cfg.latent_d)
+    U0 = state.U.to(dtype).expand(L, n, cfg.latent_d)
+    V0 = state.V.to(dtype).expand(L, m, cfg.latent_d)
     if lane_block:
         U0, V0 = U0.mT, V0.mT
         if bf16:
             U0, V0 = U0.to(torch.bfloat16), V0.to(torch.bfloat16)
     U0, V0 = U0.contiguous(), V0.contiguous()
+    info = None
     if poly_ls:
         U, V, f, _ = _poly_epochs(
             lambda U, V: fn(U, V, *args, **vg_kw),
@@ -447,7 +484,7 @@ def fit_lookahead_batch(
         f = info.final_value
     if lane_block:
         U, V = U.mT.to(f32), V.mT.to(f32)
-    return U, V, f
+    return U, V, f, info
 
 
 def parse_fit_type(string: str) -> tuple:

@@ -3,9 +3,9 @@
 
 For every queryable cell: add its TRUE rating, refit the MAP factors, and
 record the change in test RMSE. The candidates are refit in tiles of lanes
-by ``models/pmf.fit_lookahead_batch`` (on the card, the value+gradient CUDA
-kernel). Same flags and results pickle as the JAX package's CLI, plus
-``--device``:
+by ``boost_tile`` (``models/pmf.fit_lookahead_batch``; on the card, the
+value+gradient CUDA kernel). Same flags and results pickle as the JAX
+package's CLI, plus ``--device``:
 
     python -m amf_tpu_torch.run.add_rmse_boosts --load-data data.npz -D 10 --tile 128
 """
@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import argparse
 import pickle
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from amf_tpu_torch.models import pmf
 from amf_tpu_torch.types import Problem
+from amf_tpu_torch.utils.profiling import span
 
 # lanes whose (n, m) prediction is formed at once when scoring a tile
 RMSE_CHUNK = 8
@@ -33,23 +35,61 @@ def masked_rmse(pred: torch.Tensor, real: torch.Tensor, test: torch.Tensor
                       / test.sum().clamp(min=1))
 
 
+class BoostTile(NamedTuple):
+    """One tile of refits: each lane's test RMSE, and what produced it."""
+
+    rmse: torch.Tensor  # (L,) test RMSE after the lane's refit
+    neg_ll: torch.Tensor  # (L,) the refit's negative log posterior
+    U: torch.Tensor  # (L, n, d) the lanes' refitted factors
+    V: torch.Tensor  # (L, m, d)
+
+
+def _refit_rmses(state, problem, cfg, real, di, dj, dv, max_steps,
+                 use_pallas) -> BoostTile:
+    U, V, f = pmf.fit_lookahead_batch(
+        state, problem, di, dj, dv, cfg, max_steps=max_steps,
+        use_pallas=use_pallas)
+    with span("boost.rmse", lanes=int(U.shape[0])):
+        rmse = torch.cat([
+            masked_rmse(U[s:s + RMSE_CHUNK] @ V[s:s + RMSE_CHUNK].mT, real,
+                        problem.test)
+            for s in range(0, U.shape[0], RMSE_CHUNK)])
+    return BoostTile(rmse, f, U, V)
+
+
+def boost_tile(
+    state: pmf.PMFState, problem: Problem, cfg: pmf.PMFConfig,
+    real: torch.Tensor, cand: torch.Tensor, max_steps: int,
+    use_pallas: bool = True,
+) -> BoostTile:
+    """One tile of the CLI: each flat candidate cell of ``cand`` (L,) gets
+    its TRUE rating from ``real`` added, the MAP factors of ``state`` are
+    refit on every lane at once (``fit_lookahead_batch`` with the
+    value+gradient kernel on the card, ``use_pallas``), and each lane's
+    test RMSE is taken. The refit runs in the state's dtype (float64 only
+    on the CPU).
+
+    The prediction U_l V_l^T of each lane is formed ``RMSE_CHUNK`` lanes at
+    a time, so the (L, n, m) tensor of a whole tile is never held. Spans:
+    ``boost.tile`` around it all, ``pmf.refit_batch`` and ``boost.rmse``
+    inside.
+    """
+    with span("boost.tile", lanes=int(cand.shape[0])):
+        m = problem.shape[1]
+        di, dj = cand // m, cand % m
+        return _refit_rmses(state, problem, cfg, real, di, dj, real[di, dj],
+                            max_steps, use_pallas)
+
+
 def tile_rmses(
     state: pmf.PMFState, problem: Problem, cfg: pmf.PMFConfig,
     real: torch.Tensor, di: torch.Tensor, dj: torch.Tensor, dv: torch.Tensor,
     max_steps: int, use_pallas: bool = True,
 ) -> torch.Tensor:
-    """(L,) test RMSE after refitting each lane with its rating added.
-
-    The prediction U_l V_l^T of each lane is formed ``RMSE_CHUNK`` lanes at
-    a time, so the (L, n, m) tensor of a whole tile is never held.
-    """
-    U, V, _ = pmf.fit_lookahead_batch(
-        state, problem, di, dj, dv, cfg, max_steps=max_steps,
-        use_pallas=use_pallas)
-    return torch.cat([
-        masked_rmse(U[s:s + RMSE_CHUNK] @ V[s:s + RMSE_CHUNK].mT, real,
-                    problem.test)
-        for s in range(0, U.shape[0], RMSE_CHUNK)])
+    """(L,) test RMSE after refitting each lane with the rating (di, dj, dv)
+    added: ``boost_tile``'s work for any hypothesised values."""
+    return _refit_rmses(state, problem, cfg, real, di, dj, dv, max_steps,
+                        use_pallas).rmse
 
 
 def main(argv=None):
@@ -105,11 +145,10 @@ def main(argv=None):
     boosts = np.full((n, m), np.nan)
     for t in range(len(cand) // args.tile):
         s = slice(t * args.tile, (t + 1) * args.tile)
-        di = torch.as_tensor(cand[s] // m, device=device)
-        dj = torch.as_tensor(cand[s] % m, device=device)
-        dv = real_t[di, dj]  # the TRUE value of each candidate cell
-        rmses = tile_rmses(st, prob, cfg, real_t, di, dj, dv,
-                           args.refit_steps, args.use_pallas).cpu().numpy()
+        rmses = boost_tile(st, prob, cfg, real_t,
+                           torch.as_tensor(cand[s], device=device),
+                           args.refit_steps, args.use_pallas
+                           ).rmse.cpu().numpy()
         for c, ok, r in zip(cand[s], valid[s], rmses):
             if ok:
                 boosts[c // m, c % m] = r0 - r

@@ -3366,7 +3366,7 @@ def main() -> int:
     save_npz_schema(str(data_path), {"_real": real, "_known": known_np,
                                      "_test_on": knowable & ~known_np & ~pool})
     tile_log = []
-    inner_tile_rmses = add_rmse_boosts.tile_rmses
+    inner_boost_tile = add_rmse_boosts.boost_tile
     inner_descent = pmf.adaptive_descent
 
     def descent(*a, **kw):  # records the slowest lane's proposals
@@ -3378,12 +3378,12 @@ def main() -> int:
     def timed_tile(*a, **kw):
         tile_log.append({})
         t0 = time.perf_counter()
-        out = inner_tile_rmses(*a, **kw)
+        out = inner_boost_tile(*a, **kw)
         torch.cuda.synchronize()
         tile_log[-1]["s"] = time.perf_counter() - t0
         return out
 
-    add_rmse_boosts.tile_rmses, pmf.adaptive_descent = timed_tile, descent
+    add_rmse_boosts.boost_tile, pmf.adaptive_descent = timed_tile, descent
     pk.pmf_value_grad_cuda.launches.clear()
     pk.pmf_value_grad_plain.calls = 0
     since = (pk.rated_index.calls, fit_calls[0])
@@ -3393,7 +3393,7 @@ def main() -> int:
                               "--tile", str(CLI_TILE), "--out", str(out_path)])
         cli_s = time.perf_counter() - t0
     finally:
-        add_rmse_boosts.tile_rmses = inner_tile_rmses
+        add_rmse_boosts.boost_tile = inner_boost_tile
         pmf.adaptive_descent = inner_descent
     cli_launches = dict(pk.pmf_value_grad_cuda.launches)
     cli_plain = pk.pmf_value_grad_plain.calls
@@ -3408,6 +3408,8 @@ def main() -> int:
         index_builds=cli_index[0], refits=cli_index[1],
         boost_mean=float(np.nanmean(boosts)),
         boost_max=float(np.nanmax(boosts)))), flush=True)
+    check(len(tile_log) == CLI_POOL // CLI_TILE,
+          f"the CLI's tiles did not pass through boost_tile: {tile_log}")
     check(set(res) == {"_real", "base_rmse", "boosts"}, f"keys {set(res)}")
     check(math.isfinite(res["base_rmse"]), f"base RMSE {res['base_rmse']}")
     check(bool((np.isfinite(boosts) == pool).all()),
