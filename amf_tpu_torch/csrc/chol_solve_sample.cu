@@ -32,41 +32,79 @@
 // What bounds it on this card: at D = 10 one matrix moves 95 values through
 // device memory (55 of the Gram's triangle, 10 of mask @ other, 10 of mrt, z
 // and x) for ~D^3/3 + 2 D^2 ~ 530 flops, about 1.4 flop per byte in f32: far
-// below the H100's balance point, so bytes and latency bound it.
-// What the design does about it:
-//   * one thread per matrix; the factor is a packed lower triangle in a
-//     per-thread array. For D <= 16 every loop is unrolled at compile time
-//     and the array lives in registers; above that the loops stay rolled and
-//     the array lives in local memory (L1-cached). Fully unrolled large D
-//     spilled tens of KB a thread anyway and made the build take minutes;
-//   * a block takes kThreads consecutive rows of one lane, so for each of the
-//     P + 2 D values the threads of a warp read neighbouring addresses, and
-//     the streams of one block lie within (P + 2 D) r values of each other;
-//     every load is started before the arithmetic;
-//   * alpha's triangle, alpha mu and the lane's cell go to shared memory once
-//     a block;
-//   * z and x keep their (rows, D) layout and each thread reads and writes
-//     its own D contiguous values: a warp covers one contiguous run, every
-//     sector of it is used, and L1 serves the sectors that the D accesses
-//     share. Copying the block's slab through shared memory with coalesced
-//     accesses (AMF_CHOL_STAGED_ZX) measured 9 % slower at D = 10 (its two
-//     barriers cost more than the repeated sectors);
-//   * the ragged last block of a lane is masked, so nothing is padded, and no
-//     transposed or assembled copy of anything exists outside the kernel.
+// below the H100's balance point, so bytes and latency bound it; at D = 20,
+// 290 values for ~3,500 flops, still bytes.
+//
+// What the design does about it.
+//
+// The S-given entry: one thread a matrix (factor_solve_sample):
+//   * the factor is a packed lower triangle in a per-thread array. For
+//     D <= 16 every loop is unrolled at compile time and the array lives in
+//     registers; above that the loops stay rolled and the array lives in
+//     local memory (L1-cached);
+//   * a block takes kThreads consecutive matrices, so the threads of a warp
+//     read neighbouring addresses of every batch-minor value.
+//
+// The Gram-fed entry (chol_gram_kernel): a group of G threads of one warp
+// shares one matrix (coop_group, a thread about five rows: G = 2 to D = 10,
+// 4 to 20, 8 to 40, 16 to 80, 32 above), thread t owning rows t, t + G, ...
+// of S and of its factor, in registers: every index is a compile-time
+// constant. On the H100 (160 lanes x 1682 rows and one lane, f32 and f64;
+// PERF.md, the B1 row) it is 30 % faster than one thread a matrix at d = 10,
+// 35 % at 16 and 7 to 15x from 17, where one thread's loops stop unrolling;
+// below 6 one thread a matrix was up to 2x faster on 160 lanes, but no
+// workload draws rows that narrow in bulk, so the group serves every D.
+//   * A block of kThreads takes kThreads / G consecutive rows of one lane
+//     and stages them in shared memory with asynchronous copies (cp.async,
+//     so that all of a block's copies are in flight at once and hold no
+//     registers): the P + D Gram values and mr of every row (consecutive
+//     threads on consecutive rows of one value) and the block's (rows, D)
+//     slab of z. Each row is a record at an odd stride, so the threads of a
+//     warp that stage one value of 32 rows, and the groups that read one
+//     entry of their own rows, do not share a bank. Shared memory is
+//     dynamic: f64 at D = 32 and 48 needs more than 48 KB;
+//   * S and b are assembled from the records with the lane's constants;
+//   * the factor is a left-looking Crout: for column j the owner of row j
+//     hands L(j, 0..j-1) to its group by __shfl_sync in ascending k, each
+//     thread subtracts them from its rows below j, and the owner's pivot
+//     goes round the same way. The forward substitution hands y_j round as
+//     it is found, and each thread subtracts L(i, j) y_j from its rows; for
+//     the back substitution the group turns its factor through its records
+//     (each thread then holds the columns of its rows) and hands x_j round
+//     from the bottom up. Every sum is taken in the order of
+//     factor_solve_sample, so the two entries differ only where the compiler
+//     contracts;
+//   * a shuffle never leaves its group, so a matrix that is not positive
+//     definite gives NaN on its own row only;
+//   * the Crout's chain of shuffles is latency, hidden by more warps an SM:
+//     __launch_bounds__ caps the registers a thread by width and type
+//     (coop_min_blocks), 9 to 35 % faster than no cap where a cap binds;
+//   * x goes back into the records and the block writes its slab with
+//     coalesced stores.
+//
+// The lane's constants (alpha's triangle, alpha mu and the lane's cell) are
+// staged once a block in shared memory, and the ragged last block of a lane
+// is masked, so nothing is padded, and no transposed or assembled copy of
+// anything exists outside the kernel.
 //
 // C interface (loaded with ctypes): see the bottom of this file. Every
-// function returns the cudaError_t of its launch.
+// launching function returns the cudaError_t of its launch.
 //
 // Widths: built without AMF_ONLY_D the library takes every D from 1 to
-// 32; built with AMF_ONLY_D=D it takes that one D, which is how a D
-// above 32 is built (one library a width; the loops stay rolled and the
-// factor lives in local memory, as above 16).
+// 32; built with AMF_ONLY_D=D it takes that one D. The package builds one
+// library a width (cuda_build.width_defines): all 32 in one took 112.8 s of
+// nvcc, one width 7 to 17 s. The Gram-fed entry's records must fit the
+// 227 KB of shared memory a block may have on the H100 (coop_smem_bytes):
+// it takes D up to 149 in f32 and, in f64, up to 77 and from 81 to 104
+// (groups of 32 hold fewer records a block); ops/chol_kernel.py refuses a
+// wider D before it builds a library. Above D = 48 the register arrays
+// spill more and more, and nothing is measured there.
 //
 // Build-time knobs, for the probe (python -m amf_tpu_torch.ops.probe_kernels):
 // AMF_CHOL_THREADS (threads a block), AMF_CHOL_MIN_BLOCKS (the second
-// argument of __launch_bounds__), AMF_ONLY_D (instantiate one D only),
-// AMF_CHOL_PROBE (adds copy-only kernels with the same loads and stores),
-// AMF_CHOL_STAGED_ZX (z and x go through a shared-memory slab).
+// argument of __launch_bounds__ in the S-given entry), AMF_ONLY_D
+// (instantiate one D only) and AMF_CHOL_PROBE (adds a copy-only twin of
+// the S-given entry with the same loads and stores).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +121,29 @@ namespace {
 constexpr int kThreads = AMF_CHOL_THREADS;
 constexpr int kMinBlocks = AMF_CHOL_MIN_BLOCKS;
 constexpr int kMaxUnrolledD = 16;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Threads that share one matrix in the Gram-fed entry: a power of two (a
+// group lies in one warp) that gives a thread about five rows. Mirrored by
+// ops/chol_kernel.py's gram_group.
+template <int D>
+__host__ __device__ constexpr int coop_group() {
+  int g = 2;
+  while (g < 32 && 5 * g < D) g *= 2;
+  return g;
+}
+
+// The Gram-fed entry's blocks an SM (the second argument of
+// __launch_bounds__, which caps its registers a thread): the cap that was
+// fastest on the H100 at d = 6, 10, 16, 17, 20, 24, 32 and 48 (more warps an
+// SM hide the Crout's chain of shuffles; f64 at d = 17 and 20 spills a few
+// hundred bytes under its cap and is still faster). Widths between take
+// their neighbours' cap; above 48 none.
+template <typename T, int D>
+__host__ __device__ constexpr int coop_min_blocks() {
+  if (sizeof(T) == 4) return D <= 24 ? 5 : D <= 48 ? 4 : 1;
+  return D <= 7 ? 5 : D <= 16 ? 4 : D <= 20 ? 3 : 1;
+}
 
 // Unroll factor of every loop: all of it up to kMaxUnrolledD, none above.
 template <int D>
@@ -98,13 +159,6 @@ struct BatchMinorZ {
   const T* z;
   int64_t B;
   __device__ __forceinline__ T operator()(int j) const { return z[(int64_t)j * B]; }
-};
-
-// z of one matrix as a row of the block's shared-memory slab
-template <typename T>
-struct RowZ {
-  const T* row;
-  __device__ __forceinline__ T operator()(int j) const { return row[j]; }
 };
 
 // The shared body. L holds S's lower triangle and is overwritten by the
@@ -205,50 +259,15 @@ struct GramArgs {
   T* out;                   // (L, r, D)
   T beta;
   int64_t r, c, z_lane, other_lane;
-  int chunks;               // blocks a lane: ceil(r / kThreads)
+  int chunks;               // blocks a lane: ceil(r / rows a block)
 };
 
-template <typename T, int D, bool kCopyOnly>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-chol_gram_kernel(GramArgs<T> a) {
-  constexpr int P = D * (D + 1) / 2;
-  __shared__ T s_alpha[P];   // alpha_l's lower triangle
-  __shared__ T s_amu[D];     // alpha_l mu_l
-  __shared__ T s_o[D];       // the lane cell's factor row
-#ifdef AMF_CHOL_STAGED_ZX
-  constexpr int ZS = D | 1;  // odd row stride of the z / x slab
-  __shared__ T s_zx[kThreads * ZS];
-#endif
-
+// The lane's constants, once a block: alpha_l's lower triangle, alpha_l mu_l
+// and, with cells, the lane cell's factor row. The caller synchronises.
+template <typename T, int D>
+__device__ __forceinline__ void stage_lane(const GramArgs<T>& a, int64_t l,
+                                           T* s_alpha, T* s_amu, T* s_o) {
   const int tid = threadIdx.x;
-  const int64_t l = blockIdx.x / a.chunks;
-  const int64_t i0 = (int64_t)(blockIdx.x % a.chunks) * kThreads;
-  const int rows = (int)(a.r - i0 < kThreads ? a.r - i0 : kThreads);
-  const int64_t cell_row = a.cell_row ? a.cell_row[l] : -1;
-  const T center = a.center ? a.center[l] : T(0);
-
-  // this thread's row; the ragged tail's threads reread the block's first.
-  // Every load is started before the lane's constants are staged, so all are
-  // in flight together.
-  const bool active = tid < rows;
-  const int64_t i = i0 + (active ? tid : 0);
-  const T* g = a.Gt + l * (P + D) * a.r + i;
-  const T* mr = a.mrt + l * D * a.r + i;
-  T L[P], w[D], go[D];
-#pragma unroll (Unroll<D>::value)
-  for (int q = 0; q < P; ++q) L[q] = g[q * a.r];
-#pragma unroll (Unroll<D>::value)
-  for (int k = 0; k < D; ++k) go[k] = g[(P + k) * a.r];
-#pragma unroll (Unroll<D>::value)
-  for (int k = 0; k < D; ++k) w[k] = mr[k * a.r];
-#ifndef AMF_CHOL_STAGED_ZX
-  T zx[D];  // z, then x: the thread's own D contiguous values
-  const T* zrow = a.z + l * a.z_lane + i * D;
-#pragma unroll (Unroll<D>::value)
-  for (int k = 0; k < D; ++k) zx[k] = zrow[k];
-#endif
-
-  // the lane's constants, once a block
   const T* alpha = a.alpha + l * D * D;
   for (int q = tid; q < D * D; q += kThreads) {
     const int p = q / D, j = q % D;
@@ -260,47 +279,229 @@ chol_gram_kernel(GramArgs<T> a) {
     s_amu[tid] = s;
     if (a.cell_row) s_o[tid] = a.other[l * a.other_lane + a.cell_col[l] * D + tid];
   }
-#ifdef AMF_CHOL_STAGED_ZX
-  // probe: the block copies its (rows, D) slab of z through shared memory
-  const T* zs = a.z + l * a.z_lane + i0 * D;
-  for (int e = tid; e < rows * D; e += kThreads)
-    s_zx[(e / D) * ZS + e % D] = zs[e];
-  T* zx = s_zx + tid * ZS;
+}
+
+// Entries a thread keeps of its row slot q (rows q G .. q G + G - 1 of the
+// matrix): columns 0 .. min((q + 1) G, D) - 1.
+__host__ __device__ constexpr int slot_width(int q, int G, int D) {
+  return (q + 1) * G < D ? (q + 1) * G : D;
+}
+
+// A row's record in the Gram-fed kernel's shared memory: the packed Gram (P
+// values), G_o (D), mr (D), then z, overwritten by x (D); an odd stride.
+template <int D>
+__host__ __device__ constexpr int record_stride() {
+  return (D * (D + 1) / 2 + 3 * D) | 1;
+}
+
+// Matrices a block of the Gram-fed kernel takes.
+template <int D>
+__host__ __device__ constexpr int gram_rows_a_block() {
+  return kThreads / coop_group<D>();
+}
+
+// The Gram-fed kernel's dynamic shared memory: the block's records, alpha's
+// triangle, alpha mu and the lane cell's factor row. Mirrored by
+// ops/chol_kernel.py's gram_smem_bytes.
+template <typename T, int D>
+__host__ __device__ constexpr size_t coop_smem_bytes() {
+  return sizeof(T) * ((size_t)gram_rows_a_block<D>() *
+                          record_stride<D>() +
+                      D * (D + 1) / 2 + 2 * D);
+}
+
+// One value from device memory into shared memory without a register
+// (cp.async): the copies of a block are all in flight together.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+#else
+  *dst = *src;
 #endif
+}
+
+__device__ __forceinline__ void wait_async() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// A group of G threads a matrix (see the top of the file). Thread t of a
+// group owns rows t, t + G, ... (its slots q = 0 .. R - 1).
+template <typename T, int D>
+__device__ __forceinline__ void gram_coop(const GramArgs<T>& a) {
+  constexpr int P = D * (D + 1) / 2;
+  constexpr int G = coop_group<D>();
+  constexpr int R = (D + G - 1) / G;  // rows a thread owns
+  constexpr int RB = kThreads / G;    // matrices a block
+  constexpr int ST = record_stride<D>();
+  constexpr int GO = P, MR = P + D, ZX = P + 2 * D;  // offsets in a record
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0,
+                "a group is a power of two within one warp");
+  static_assert(kThreads % 32 == 0, "whole warps a block");
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  T* s_rec = reinterpret_cast<T*>(s_dyn);
+  T* s_alpha = s_rec + RB * ST;
+  T* s_amu = s_alpha + P;
+  T* s_o = s_amu + D;
+
+  const int tid = threadIdx.x;
+  const int64_t l = blockIdx.x / a.chunks;
+  const int64_t i0 = (int64_t)(blockIdx.x % a.chunks) * RB;
+  const int rows = (int)(a.r - i0 < RB ? a.r - i0 : RB);
+  const int64_t cell_row = a.cell_row ? a.cell_row[l] : -1;
+  const T center = a.center ? a.center[l] : T(0);
+
+  // stage the block's rows: thread tid copies values tid / RB, + G, ... of
+  // row tid % RB, so a warp reads one value of consecutive rows. The ragged
+  // tail's records copy the block's first row; their groups store nothing.
+  {
+    const int row = tid % RB;
+    const int64_t i = i0 + (row < rows ? row : 0);
+    T* rec = s_rec + row * ST;
+    const T* g = a.Gt + l * (P + D) * a.r + i;
+    const T* mr = a.mrt + l * D * a.r + i;
+#pragma unroll 8
+    for (int q = tid / RB; q < P + D; q += G) copy_async(rec + q, g + q * a.r);
+    for (int q = tid / RB; q < D; q += G)
+      copy_async(rec + MR + q, mr + q * a.r);
+    const T* zs = a.z + l * a.z_lane + i0 * D;
+    for (int e = tid; e < RB * D; e += kThreads) {
+      const int zrow = e / D, k = e % D;
+      copy_async(s_rec + zrow * ST + ZX + k, zs + (zrow < rows ? e : k));
+    }
+  }
+  stage_lane<T, D>(a, l, s_alpha, s_amu, s_o);
+  wait_async();
   __syncthreads();
 
-  if (active) {
-#pragma unroll (Unroll<D>::value)
-    for (int q = 0; q < P; ++q) L[q] = s_alpha[q] + a.beta * L[q];
-#pragma unroll (Unroll<D>::value)
-    for (int k = 0; k < D; ++k)
-      w[k] = a.beta * (w[k] - center * go[k]) + s_amu[k];
-    if (i == cell_row) {
-      const T sm = a.beta * a.dm[l];
-      const T sr = a.beta * (a.dr[l] - a.dm[l] * center);
-#pragma unroll (Unroll<D>::value)
-      for (int p = 0; p < D; ++p) {
-#pragma unroll (Unroll<D>::value)
-        for (int q = 0; q <= p; ++q) L[tri(p, q)] += sm * (s_o[p] * s_o[q]);
-        w[p] += sr * s_o[p];
-      }
-    }
-    factor_solve_sample<T, D, kCopyOnly>(L, w, RowZ<T>{zx});
-#ifdef AMF_CHOL_STAGED_ZX
-#pragma unroll (Unroll<D>::value)
-    for (int k = 0; k < D; ++k) zx[k] = w[k];
-#else
-    T* xrow = a.out + (l * a.r + i) * D;
-#pragma unroll (Unroll<D>::value)
-    for (int k = 0; k < D; ++k) xrow[k] = w[k];
-#endif
+  const int t = tid % G;
+  T* rec = s_rec + (tid / G) * ST;
+  const bool cell = i0 + tid / G == cell_row;
+  T sm = T(0), sr = T(0);
+  if (cell) {
+    sm = a.beta * a.dm[l];
+    sr = a.beta * (a.dr[l] - a.dm[l] * center);
   }
-#ifdef AMF_CHOL_STAGED_ZX
+
+  // S and b of the thread's rows
+  T Lr[R][D];  // slot q: S(q G + t, k), then L(q G + t, k), k <= q G + t
+  T w[R];      // b, then y + z, then x
+  T inv[R];    // 1 / L(q G + t, q G + t)
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int row = q * G + t;
+    const bool mine = row < D;
+    const int e0 = mine ? tri(row, 0) : 0;
+#pragma unroll
+    for (int k = 0; k < slot_width(q, G, D); ++k) {
+      T s = T(0);
+      if (mine && k <= row) {
+        s = s_alpha[e0 + k] + a.beta * rec[e0 + k];
+        if (cell) s += sm * (s_o[row] * s_o[k]);
+      }
+      Lr[q][k] = s;
+    }
+    T b = T(0);
+    if (mine) {
+      b = a.beta * (rec[MR + row] - center * rec[GO + row]) + s_amu[row];
+      if (cell) b += sr * s_o[row];
+    }
+    w[q] = b;
+    inv[q] = T(0);
+  }
+
+  // Cholesky-Crout, left-looking: column j takes row j of L from its owner,
+  // k ascending, then the owner's pivot
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const int qj = j / G, tj = j % G;
+    T acc[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) acc[q] = q >= qj ? Lr[q][j] : T(0);
+#pragma unroll
+    for (int k = 0; k < j; ++k) {
+      const T v = __shfl_sync(kFullMask, Lr[qj][k], tj, G);
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (q >= qj) acc[q] -= Lr[q][k] * v;
+    }
+    const T r = T(1) / sqrt(__shfl_sync(kFullMask, acc[qj], tj, G));
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (q < qj) continue;
+      const int row = q * G + t;
+      if (row > j) Lr[q][j] = acc[q] * r;
+      else if (row == j) inv[q] = r;
+    }
+  }
+
+  // forward substitution L y = b: y_j goes round as it is found and each
+  // thread takes L(i, j) y_j off its rows below j; then w = y + z
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const int qj = j / G, tj = j % G;
+    const T y = __shfl_sync(kFullMask, w[qj] * inv[qj], tj, G);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (q < qj) continue;
+      const int row = q * G + t;
+      if (row > j) w[q] -= Lr[q][j] * y;
+      else if (row == j) w[q] = y;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (q * G + t < D) w[q] += rec[ZX + q * G + t];
+
+  // turn the factor through the record's triangle: each thread writes the
+  // rows it owns and reads the columns it owns
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int row = q * G + t;
+    if (row < D) {
+#pragma unroll
+      for (int k = 0; k < slot_width(q, G, D); ++k)
+        if (k < row) rec[tri(row, k)] = Lr[q][k];
+    }
+  }
+  __syncwarp();
+  T Lc[R][D];  // slot q: L(k, q G + t), k > q G + t
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int row = q * G + t;
+#pragma unroll
+    for (int k = q * G + 1; k < D; ++k)
+      Lc[q][k] = k > row ? rec[tri(k, row)] : T(0);
+  }
+
+  // back substitution L^T x = w, from the bottom up; x_j goes round as it
+  // is found and into the record's z
+  T xs[D];
+#pragma unroll
+  for (int j = D - 1; j >= 0; --j) {
+    const int qj = j / G, tj = j % G;
+    T s = w[qj];
+#pragma unroll
+    for (int k = j + 1; k < D; ++k) s -= Lc[qj][k] * xs[k];
+    xs[j] = __shfl_sync(kFullMask, s * inv[qj], tj, G);
+    if (t == tj) rec[ZX + j] = xs[j];
+  }
+
   __syncthreads();
-  T* xs = a.out + (l * a.r + i0) * D;
+  T* xb = a.out + (l * a.r + i0) * D;
   for (int e = tid; e < rows * D; e += kThreads)
-    xs[e] = s_zx[(e / D) * ZS + e % D];
-#endif
+    xb[e] = s_rec[(e / D) * ST + ZX + e % D];
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, coop_min_blocks<T, D>())
+chol_gram_kernel(GramArgs<T> a) {
+  gram_coop<T, D>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -315,10 +516,20 @@ cudaError_t launch(const T* S, const T* rhs, const T* z, T* out, int64_t B,
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kCopyOnly = false>
-cudaError_t launch_gram(const GramArgs<T>& a, int64_t L, cudaStream_t stream) {
-  chol_gram_kernel<T, D, kCopyOnly>
-      <<<(unsigned)(L * a.chunks), kThreads, 0, stream>>>(a);
+template <typename T, int D>
+cudaError_t launch_gram(GramArgs<T> a, int64_t L, cudaStream_t stream) {
+  constexpr int rows = gram_rows_a_block<D>();
+  const int64_t chunks = (a.r + rows - 1) / rows;
+  if (chunks * L > 0x7fffffffLL) return cudaErrorInvalidValue;
+  a.chunks = (int)chunks;
+  constexpr size_t smem = coop_smem_bytes<T, D>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chol_gram_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  chol_gram_kernel<T, D><<<(unsigned)(L * chunks), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -357,9 +568,6 @@ cudaError_t dispatch(const T* S, const T* rhs, const T* z, T* out, int64_t B,
 template <typename T>
 cudaError_t dispatch_gram(GramArgs<T> a, int64_t L, int d, cudaStream_t stream) {
   if (L <= 0 || a.r <= 0 || a.c <= 0) return cudaErrorInvalidValue;
-  const int64_t chunks = (a.r + kThreads - 1) / kThreads;
-  if (chunks * L > 0x7fffffffLL) return cudaErrorInvalidValue;
-  a.chunks = (int)chunks;
   switch (d) {
 #define AMF_CALL(N) (launch_gram<T, N>(a, L, stream))
     AMF_CASES(AMF_CALL)
@@ -406,18 +614,12 @@ AMF_GRAM_ENTRY(amf_chol_gram_solve_sample_f32, float)
 AMF_GRAM_ENTRY(amf_chol_gram_solve_sample_f64, double)
 
 #ifdef AMF_CHOL_PROBE
-// Copy-only twins at d = 10, f32: the same loads and stores, no factorisation.
-// mode 0: the batch-minor entry (Gt is S, mrt is rhs); mode 1: the Gram-fed.
-extern "C" int amf_chol_copy_probe_f32(int mode, const float* Gt,
-                                       const float* mrt, const float* z,
-                                       const float* alpha, const float* mu,
-                                       float* out, long long L, long long r,
-                                       void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mode == 0) return (int)launch<float, 10, true>(Gt, mrt, z, out, L * r, s);
-  GramArgs<float> a{Gt, mrt, z, alpha, mu, nullptr, nullptr, nullptr, nullptr,
-                    nullptr, nullptr, out, 2.0f, (int64_t)r, 1,
-                    (int64_t)r * 10, 0, (int)((r + kThreads - 1) / kThreads)};
-  return (int)launch_gram<float, 10, true>(a, L, s);
+// The S-given entry's copy-only twin at d = 10, f32: the same loads and
+// stores, no factorisation.
+extern "C" int amf_chol_copy_probe_f32(const float* S, const float* rhs,
+                                       const float* z, float* out,
+                                       long long B, void* stream) {
+  return (int)launch<float, 10, true>(S, rhs, z, out, (int64_t)B,
+                                      (cudaStream_t)stream);
 }
 #endif

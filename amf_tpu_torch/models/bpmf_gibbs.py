@@ -353,7 +353,9 @@ def run_chain(
     pred^2 are accumulated in place. The chain is the span
     ``gibbs.chain`` (its ``lanes``, ``rounds``, ``gram_index``: 1 where the
     row draws sum the masked Gram over the rated-cell index, 0 where they
-    take the dense product, and ``gram_nnz``, the rated cells).
+    take the dense product, ``gram_nnz``, the rated cells, and ``b1_coop``:
+    1 where the row draws take the CUDA Cholesky kernel, which works each
+    matrix with a group of threads, 0 where they take its plain version).
     """
     with span("gibbs.chain", rounds=num_samps) as sp:
         single = chain.U.dim() == 2
@@ -366,7 +368,8 @@ def run_chain(
         dtype, device = chain.U.dtype, chain.U.device
         base = _base(problem, dtype)
         sp.set(lanes=L, gram_index=int(base.by_row is not None),
-               gram_nnz=base.nnz)
+               gram_nnz=base.nnz,
+               b1_coop=int(device.type == "cuda" and chol_kernel))
         deltas = cells.deltas(problem) if cells is not None else None
         n_cut = len(cutoffs)
         cut = torch.as_tensor(cutoffs, dtype=dtype, device=device).reshape(

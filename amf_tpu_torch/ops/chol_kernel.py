@@ -23,7 +23,9 @@ entry points, each with a wrapper that counts its launches:
     index of ``ops/gram_kernel.masked_gram``) and the lane's prior and
     cell, and the kernel assembles S and b itself
     (``chol_gram_solve_sample_cuda``): nothing is transposed, unpacked or
-    assembled in PyTorch.
+    assembled in PyTorch. A group of threads works each matrix
+    (``gram_group`` of them), with its block's rows staged in shared
+    memory (``gram_smem_bytes``).
 
 ``chol_solve_sample_reference`` is the plain PyTorch version with two back
 substitutions, as the JAX reference has; the two differ only in rounding.
@@ -31,13 +33,15 @@ substitutions, as the JAX reference has; the two differ only in rounding.
 with tensor operations and calls it.
 
 Dispatch (both): a CPU tensor goes to the plain version. A CUDA tensor goes
-to the kernel, in float32 or float64, at any d: one library serves d <= 32,
-and a wider d builds a library for that d at its first use
-(``cuda_build.width_defines``). ``kernel=False`` sends a CUDA tensor to the
-plain version on purpose, to compare the two on the same inputs. Where a
-matrix is not positive definite the plain version gives NaN on its row, as
-``jnp.linalg.cholesky`` does and the kernel does (a square root of a
-negative pivot).
+to the kernel, in float32 or float64, from a library built for that d at
+its first use (``cuda_build.width_defines``): the S-given entry at any d,
+the Gram-fed entry at every d whose block fits the H100's shared memory
+(d <= 149 in float32; d <= 77 and 81 <= d <= 104 in float64), and a
+wider d raises before anything is built. ``kernel=False``
+sends a CUDA tensor to the plain version on purpose, to compare the two on
+the same inputs. Where a matrix is not positive definite the plain version
+gives NaN on its row, as ``jnp.linalg.cholesky`` does and the kernel does (a
+square root of a negative pivot).
 """
 
 from __future__ import annotations
@@ -55,6 +59,29 @@ import torch
 from amf_tpu_torch.utils.linalg import cholesky_or_nan
 
 _SOURCE = "chol_solve_sample"
+# The Gram-fed kernel's threads a block, as csrc/chol_solve_sample.cu builds
+# it, and the shared memory a block may have on the H100 (opted in)
+THREADS = 128
+SMEM_PER_BLOCK = 227 * 1024
+
+
+def gram_group(d: int) -> int:
+    """Threads that share one matrix in the Gram-fed kernel at width d:
+    the source's ``coop_group``, a power of two that gives a thread about
+    five rows."""
+    g = 2
+    while g < 32 and 5 * g < d:
+        g *= 2
+    return g
+
+
+def gram_smem_bytes(d: int, itemsize: int, threads: int = THREADS) -> int:
+    """Shared memory a block of the Gram-fed kernel takes at width d
+    (the source's ``coop_smem_bytes``): a record of p + 3 d values, at an
+    odd stride, for each of its rows, and the lane's p + 2 d constants."""
+    p = d * (d + 1) // 2
+    rows = threads // gram_group(d)
+    return itemsize * (rows * ((p + 3 * d) | 1) + p + 2 * d)
 
 
 def _entry_points(d: int):
@@ -276,6 +303,13 @@ def chol_gram_solve_sample_cuda(
     if d < 1:
         raise ValueError(f"chol_gram_solve_sample kernel takes d >= 1; got "
                          f"d={d}")
+    smem = gram_smem_bytes(d, Gt.element_size())
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"chol_gram_solve_sample kernel: at d={d} a block's rows need "
+            f"{smem} bytes of shared memory in {Gt.dtype}, more than the "
+            f"{SMEM_PER_BLOCK} a block may have; it takes d <= 149 in "
+            f"float32, and d <= 77 or 81 <= d <= 104 in float64")
 
     def slabs(x):  # contiguous (rows, d) a lane, any lane stride
         ok = x.stride(2) == 1 and x.stride(1) == d

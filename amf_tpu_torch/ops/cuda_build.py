@@ -6,11 +6,11 @@ into a shared library under ``build/amf_tpu_torch/`` at the checkout root
 and loaded with ``ctypes``. A source may be built for one value of a
 parameter at a time (``defines``): each set of defines is a library of its
 own. ``width_defines`` gives each source its defines for a factor width d:
-up to ``BUCKETED_D`` the value+gradient, line-coefficient and Cholesky
-sources serve every d from one library (d bucketed, or one instantiation
-each), and a wider d gets a library built for that d at its first use; the
-fused line search and the masked Gram are always one library a width. The
-library's file name carries a hash of the source and the flags, so an
+up to ``BUCKETED_D`` the value+gradient and line-coefficient sources
+serve every d from one library (d bucketed, or one instantiation each), and
+a wider d gets a library built for that d at its first use; the fused line
+search, the masked Gram and the Cholesky kernel are always one library a
+width. The library's file name carries a hash of the source and the flags, so an
 edited source is rebuilt and a stale library is never loaded. The build writes to a
 temporary file and renames it into place, so concurrent first uses cannot
 load a half-written library.
@@ -99,13 +99,16 @@ def width_defines(name: str, d: int) -> Tuple[str, ...]:
 
     ``AMF_ONLY_D=d`` builds a library that takes width d alone. The fused
     line search is always built so, so that a row of d values is a register
-    array of exactly d, and so is the masked Gram, whose every width unrolls
-    its sums at compile time (all 32 widths in one library took 103.9 s of
-    nvcc on the card host, one width 5.6 s); the other sources take every
-    d <= ``BUCKETED_D`` from one library (no defines) and a wider d alone.
+    array of exactly d, and so are the masked Gram and the Cholesky kernel,
+    whose widths unroll their loops at compile time (all 32 widths in one
+    library took 103.9 s of nvcc on the card host for the masked Gram and
+    112.8 s for the Cholesky kernel, one width 5.6 s and ~9 s); the other
+    sources take every d <= ``BUCKETED_D`` from one library (no defines)
+    and a wider d alone.
     """
     if d < 1:
         raise ValueError(f"a factor width is >= 1; got d={d}")
-    if name in ("pmf_lookahead_fused", "masked_gram") or d > BUCKETED_D:
+    if name in ("pmf_lookahead_fused", "masked_gram",
+                "chol_solve_sample") or d > BUCKETED_D:
         return (f"AMF_ONLY_D={d}",)
     return ()

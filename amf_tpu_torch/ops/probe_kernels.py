@@ -7,17 +7,16 @@ whether a longer queue of lanes hides the fused refit's slowest lane.
 1. ``ptxas -v`` of every source of ``csrc/`` as the package builds it for
    d = 10 and for d = 48 (a library of that one width): registers a
    thread, spills and static shared memory of every instantiation.
-2. ``csrc/chol_solve_sample.cu`` at d = 10 only, built once per (threads a
-   block, minimum blocks an SM, z and x staged through shared memory or
-   not) setting with its copy-only twins
-   (``AMF_CHOL_PROBE``), all builds in parallel. For each setting, at the
-   Gibbs tile's larger batch (160 lanes x 1682 rows = 269,120 matrices,
-   float32): registers, the resident blocks and warps an SM that follow, the
-   waves of the grid, and the CUDA-event time of four launches on the same
-   buffers: the batch-minor entry, its copy-only twin (the same loads and
-   stores, no factorisation), the Gram-fed entry, and its copy-only twin;
-   the last two also at 1696 rows a lane, where every stream of a lane is
-   128-byte aligned.
+2. ``csrc/chol_solve_sample.cu`` at d = 10 only, built once per (threads
+   a block, minimum blocks an SM of the S-given entry) setting with the
+   S-given entry's copy-only twin (``AMF_CHOL_PROBE``), all builds in
+   parallel. For each setting, at the Gibbs tile's larger batch (160 lanes
+   x 1682 rows = 269,120 matrices, float32): registers, the resident blocks
+   and warps an SM that follow, the waves of the grid, and the CUDA-event
+   time of the launches on the same buffers: the batch-minor entry, its
+   copy-only twin (the same loads and stores, no factorisation) and the
+   Gram-fed entry, also at 1696 rows a lane, where every stream of a lane
+   is 128-byte aligned.
 3. The fused refit (``pmf_lookahead_fused_cuda``) at the MovieLens-100k
    shape of ``chip_smoke.py`` and the ``add_rmse_boosts`` CLI's values
    (1,024 candidate cells at their true ratings, 200 steps, float32): one
@@ -46,6 +45,17 @@ whether a longer queue of lanes hides the fused refit's slowest lane.
    at 160 lanes, 943 x 1682, d = 20, over densities from 0.3 % to 100 %,
    in float32 and in float64.
 
+6. ``csrc/chol_solve_sample.cu``'s Gram-fed entry, B1 (``--chol`` runs
+   this section alone): at d = 10, 16, 17, 20, 32 and 48 the library the
+   package builds (one a width), its nvcc seconds and ``ptxas -v``
+   (registers, spills, stack frame); in float32 at the lookahead tile's two
+   draws (160 lanes x 943 and x 1682 rows), 10 lanes and the active loop's
+   one-lane draws, in float64 at the V draw of 160 lanes and of one: the
+   wrapper's CUDA-event time, the launch's device time by the profiler, the
+   largest gap to the plain version (scaled by 1 + |x|), the plain
+   version's time and the bound (bytes or operations, each input and
+   output counted once).
+
 Prints one JSON line per result; needs a CUDA card and nvcc.
 """
 
@@ -72,9 +82,8 @@ L, R, D = 160, 1682, 10
 WIDE_D = 48  # a width above the shared libraries' 32
 P = D * (D + 1) // 2
 R_ALIGNED = 1696  # the next multiple of 32 rows: every stream 128-byte aligned
-# (threads a block, minimum blocks an SM, z and x staged through shared memory)
-SETTINGS = [(128, 1, False), (128, 1, True), (256, 1, False),
-            (256, 1, True), (64, 1, False), (128, 6, False)]
+# (threads a block, minimum blocks an SM of the S-given entry)
+SETTINGS = [(128, 1), (256, 1), (64, 1), (128, 6)]
 SMS, REGS_SM, WARPS_SM, SMEM_SM = 132, 65536, 64, 233472
 REPS = 50
 
@@ -91,20 +100,22 @@ def ptxas(source: str, defines=(), out=None):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {source}.cu:\n{proc.stderr}")
     rows, name = [], None
-    spill = (0, 0)
+    spill, stack = (0, 0), 0
     for line in proc.stderr.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = (int(m.group(1)), int(m.group(2)))
+            stack = int(m.group(1))
+            spill = (int(m.group(2)), int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
             rows.append(dict(kernel=name, registers=int(m.group(1)),
                              spill_stores=spill[0], spill_loads=spill[1],
+                             stack=stack,
                              smem=int(smem.group(1)) if smem else 0))
             name = None
     return rows
@@ -141,26 +152,27 @@ def cuda_ms(fn, reps=REPS):
 
 
 def build_setting(setting):
-    """One (threads, minimum blocks) build at d = 10 with the copy twins."""
-    threads, min_blocks, staged = setting
-    out = (cuda_build.BUILD_DIR / "probe"
-           / f"chol_{threads}_{min_blocks}_{int(staged)}.so")
+    """One (threads, minimum blocks) build at d = 10 with the copy twin."""
+    threads, min_blocks = setting
+    out = cuda_build.BUILD_DIR / "probe" / f"chol_{threads}_{min_blocks}.so"
     defines = [f"AMF_CHOL_THREADS={threads}",
                f"AMF_CHOL_MIN_BLOCKS={min_blocks}", f"AMF_ONLY_D={D}",
-               "AMF_CHOL_PROBE"] + ["AMF_CHOL_STAGED_ZX"] * staged
+               "AMF_CHOL_PROBE"]
     return out, ptxas("chol_solve_sample", defines, out)
 
 
 def chol_setting(setting, out, rows, bufs, aligned):
-    """Time the four launches of one built setting."""
+    """Time the launches of one built setting."""
+    from amf_tpu_torch.ops import chol_kernel as ck
+
     lib = ctypes.CDLL(str(out))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.amf_chol_solve_sample_f32.argtypes = [p] * 4 + [ll, i, p]
     lib.amf_chol_gram_solve_sample_f32.argtypes = (
         [p] * 12 + [ctypes.c_double] + [ll] * 5 + [i, p])
-    lib.amf_chol_copy_probe_f32.argtypes = [i] + [p] * 6 + [ll, ll, p]
+    lib.amf_chol_copy_probe_f32.argtypes = [p] * 4 + [ll, p]
     stream = torch.cuda.current_stream().cuda_stream
-    threads, min_blocks, staged = setting
+    threads, min_blocks = setting
     s_t, rhs_t, z_t, out_t, Gt, mrt, z, alpha, mu, x = (
         t.data_ptr() for t in bufs)
     Gt_a, mrt_a, z_a, x_a = (t.data_ptr() for t in aligned)
@@ -175,37 +187,34 @@ def chol_setting(setting, out, rows, bufs, aligned):
             lib.amf_chol_solve_sample_f32, s_t, rhs_t, z_t, out_t, L * R, D,
             stream)),
         batch_minor_copy_ms=cuda_ms(lambda: call(
-            lib.amf_chol_copy_probe_f32, 0, s_t, rhs_t, z_t, alpha, mu, out_t,
-            L, R, stream)),
+            lib.amf_chol_copy_probe_f32, s_t, rhs_t, z_t, out_t, L * R,
+            stream)),
         gram_ms=cuda_ms(lambda: call(
             lib.amf_chol_gram_solve_sample_f32, Gt, mrt, z, alpha, mu, 0, 0,
             0, 0, 0, 0, x, 2.0, L, R, 1, R * D, 0, D, stream)),
-        gram_copy_ms=cuda_ms(lambda: call(
-            lib.amf_chol_copy_probe_f32, 1, Gt, mrt, z, alpha, mu, x, L, R,
-            stream)),
         gram_aligned_rows_ms=cuda_ms(lambda: call(
             lib.amf_chol_gram_solve_sample_f32, Gt_a, mrt_a, z_a, alpha, mu,
             0, 0, 0, 0, 0, 0, x_a, 2.0, L, R_ALIGNED, 1, R_ALIGNED * D, 0, D,
-            stream)),
-        gram_copy_aligned_rows_ms=cuda_ms(lambda: call(
-            lib.amf_chol_copy_probe_f32, 1, Gt_a, mrt_a, z_a, alpha, mu, x_a,
-            L, R_ALIGNED, stream)))
-    res = dict(threads=threads, min_blocks=min_blocks, staged_zx=staged,
-               **times)
+            stream)))
+    res = dict(threads=threads, min_blocks=min_blocks, **times)
     for r in rows:
-        m = re.search(r"kernelI([fd])Li\d+ELb([01])E", r["kernel"])
+        m = re.search(r"kernelI([fd])Li\d+E(?:Lb([01])E)?", r["kernel"])
         if not m or m.group(1) != "f":  # the float32 instantiations only
             continue
-        kind = ("gram" if "gram" in r["kernel"] else "batch_minor") + (
+        gram = "gram" in r["kernel"]
+        kind = ("gram" if gram else "batch_minor") + (
             "_copy" if m.group(2) == "1" else "")
+        # the Gram-fed kernel's shared memory is dynamic, ptxas's static
+        smem = r["smem"] + (ck.gram_smem_bytes(D, 4, threads) if gram else 0)
         by_regs = REGS_SM // (r["registers"] * threads)
-        by_smem = SMEM_SM // (r["smem"] + 1024) if r["smem"] else 99
+        by_smem = SMEM_SM // (smem + 1024) if smem else 99
         blocks_sm = min(by_regs, by_smem, WARPS_SM * 32 // threads, 32)
-        grid = (L * -(-R // threads) if "gram" in kind
+        rows_a_block = threads // ck.gram_group(D) if gram else threads
+        grid = (L * -(-R // rows_a_block) if gram
                 else -(-L * R // threads))
         res[kind] = dict(
             registers=r["registers"], spill_stores=r["spill_stores"],
-            smem=r["smem"], blocks_sm=blocks_sm,
+            smem=smem, blocks_sm=blocks_sm,
             warps_sm=blocks_sm * threads // 32, grid=grid,
             waves=grid / (SMS * blocks_sm))
     return res
@@ -524,6 +533,110 @@ def gram_section(dev):
     return rows
 
 
+# B1 at the widths around d = 16, where a thread's loops stop unrolling,
+# the benchmark's 20 and the widest tested, 48: in float32 at the lookahead
+# tile's draws (160 lanes), at 10 lanes (the d = 48 smoke tile) and at the
+# active loop's one lane, (L, r, c); in float64 at the larger draw and the
+# one-lane V draw
+CHOL_WIDTHS = (10, 16, 17, 20, 32, WIDE_D)
+CHOL_SHAPES = {torch.float32: ((160, 943, 1682), (160, 1682, 943),
+                               (10, 1682, 943), (1, 943, 1682),
+                               (1, 1682, 943)),
+               torch.float64: ((160, 1682, 943), (1, 1682, 943))}
+
+
+def _chol_inputs(dev, L, r, c, d, dtype, seed=0):
+    """A row draw of L lanes at the cells' density (5,000 rated of
+    943 x 1682), with centre and cells: the wrapper's arguments."""
+    from amf_tpu_torch.models import bpmf_gibbs
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device=dev)
+
+    mask = (torch.rand(r, c, generator=gen, device=dev)
+            < 5000 / (943 * 1682)).to(dtype)
+    masked_r = mask * torch.randint(1, 6, (r, c), generator=gen,
+                                    device=dev).to(dtype)
+    other = 0.5 * rand(L, c, d)
+    A = rand(L, d, d)
+    alpha = A @ A.mT / d + 0.5 * torch.eye(d, dtype=dtype, device=dev)
+    Gt, mrt = bpmf_gibbs._gram_products(mask, masked_r, other)
+    cells = (torch.randint(0, r, (L,), generator=gen, device=dev),
+             torch.randint(0, c, (L,), generator=gen, device=dev),
+             torch.ones(L, dtype=dtype, device=dev), rand(L))
+    return (Gt, mrt, rand(L, r, d), alpha, rand(L, d), 2.0,
+            3 + 0.1 * rand(L), cells, other)
+
+
+def _chol_bound_ms(L, r, d, dtype):
+    """The larger of B1's bytes (p + 4 d values a row) over 3.35 TB/s and
+    its operations over 67 (f32) or 34 (f64) TFLOP/s."""
+    p = d * (d + 1) // 2
+    size = torch.finfo(dtype).bits // 8
+    by_bytes = (p + 4 * d) * size * L * r / 3.35e12
+    by_ops = (d ** 3 / 3 + 2 * d * d + 2 * p + 4 * d) * L * r / (
+        67e12 if size == 4 else 34e12)
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops \
+        else "operations"
+
+
+def chol_section(dev):
+    """Section 6: B1 as the package builds it, one row a (width, shape,
+    dtype)."""
+    from amf_tpu_torch.ops import chol_kernel as ck
+
+    def build(d):
+        defines = cuda_build.width_defines("chol_solve_sample", d)
+        start = time.perf_counter()
+        rows = ptxas("chol_solve_sample", defines,
+                     cuda_build.library_path("chol_solve_sample", defines))
+        return time.perf_counter() - start, [
+            r for r in rows if "chol_gram_kernel" in r["kernel"]]
+
+    with ThreadPoolExecutor(6) as pool:
+        built = list(pool.map(build, CHOL_WIDTHS))
+    out = []
+    for d, (secs, rows) in zip(CHOL_WIDTHS, built):
+        row = dict(section="chol-build", d=d, nvcc_s=round(secs, 1),
+                   kernels=[dict(kernel=r["kernel"][-48:], **{
+                       k: r[k] for k in ("registers", "spill_stores",
+                                         "stack", "smem")}) for r in rows])
+        out.append(row)
+        print("chol " + json.dumps(row), flush=True)
+    for d in CHOL_WIDTHS:
+        for dtype, shapes in CHOL_SHAPES.items():
+            for L, r, c in shapes:
+                args = _chol_inputs(dev, L, r, c, d, dtype)
+                want = ck.chol_gram_solve_sample(*args, kernel=False)
+                bound, by = _chol_bound_ms(L, r, d, dtype)
+                out.append(_chol_row(ck, args, want, dict(
+                    section="chol", d=d, dtype=str(dtype)[6:], L=L, r=r,
+                    bound_ms=bound, bound_by=by,
+                    plain_ms=cuda_ms(lambda: ck.chol_gram_solve_sample(
+                        *args, kernel=False), 3))))
+                del args, want
+                torch.cuda.empty_cache()
+    return out
+
+
+def _chol_row(ck, args, want, row):
+    def call():
+        return ck.chol_gram_solve_sample(*args)
+
+    got = call()
+    gap = ((got - want).abs() / (1 + want.abs())).max().item()
+    d = want.shape[-1]
+    row.update(group=ck.gram_group(d), max_scaled_gap=gap,
+               ms=cuda_ms(call, 20),
+               device_ms=_device_ms_or_none(call, "chol_gram_kernel"))
+    row["bound_pct"] = (100 * row["bound_ms"] / row["device_ms"]
+                        if row["device_ms"] else None)
+    print("chol " + json.dumps(row), flush=True)
+    return row
+
+
 def probe_sections_1_to_3(dev, results):
     """Sections 1 to 3 of the module docstring, into ``results``."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -574,6 +687,8 @@ def main(argv=None) -> int:
     ap.add_argument("--gram", action="store_true",
                     help="run section 5 (the masked Gram from the index) "
                          "alone")
+    ap.add_argument("--chol", action="store_true",
+                    help="run section 6 (B1 at d = 10 to 48) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -584,7 +699,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     results = dict(card=card, ptxas=[], chol=[])
     dev = torch.device("cuda")
-    if args.gram:
+    if args.chol:
+        results["chol_b1"] = chol_section(dev)
+    elif args.gram:
         results["gram"] = gram_section(dev)
     elif args.wide_only:
         pmf_sources = SOURCES[:1] + SOURCES[2:]
@@ -597,9 +714,10 @@ def main(argv=None) -> int:
                 print("ptxas " + json.dumps(results["ptxas"][-1]), flush=True)
     else:
         probe_sections_1_to_3(dev, results)
-    if not args.gram:
+    if not (args.gram or args.chol):
         results["wide"] = wide_kernels(dev)
         results["gram"] = gram_section(dev)
+        results["chol_b1"] = chol_section(dev)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

@@ -54,7 +54,9 @@ hand-written kernel of them against its plain PyTorch version on the card:
 Phases (each raises on failure):
   1. environment and kernel builds (one nvcc per library, in parallel, at
      first use, into build/: every source for d <= 32 and for d = 48, the
-     fused line search one library a factor width), each nvcc's seconds;
+     fused line search, the masked Gram and the Cholesky kernel one library
+     a factor width: the Cholesky kernel at every width phase 2 takes), each
+     nvcc's seconds;
   2. Cholesky kernel vs plain version, both entry points: S given, at the
      main path's batch sizes and at other d; fed from the Gram, at the main
      path's two row draws (160 lanes, r = 943 and 1682), ragged and at
@@ -3070,11 +3072,13 @@ def main() -> int:
     # for one factor width a library: the main paths' and phase 11's d = 32
     # (source, width): every source at the main paths' d = 10 and at
     # d = 48, which is a library of its own; the fused line search also at
-    # d = 32 (phase 11)
+    # d = 32 (phase 11), the Cholesky kernel (one library a width) at the
+    # widths phase 2 holds to its plain version
     widths = [(src, d) for src in ("chol_solve_sample", "masked_gram",
                                    "pmf_value_grad", "pmf_line_coeffs",
                                    "pmf_lookahead_fused")
-              for d in (D, WIDE_D)] + [("pmf_lookahead_fused", 32)]
+              for d in (D, WIDE_D)] + [("pmf_lookahead_fused", 32)] + [
+                  ("chol_solve_sample", d) for d in (1, 5, 20, 32)]
     libraries = [(src, cuda_build.width_defines(src, d)) for src, d in widths]
 
     def build_s(lib):

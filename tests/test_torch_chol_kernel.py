@@ -247,8 +247,13 @@ def _gram_args(x, device="cpu"):
 
 
 GRAM_CASES = pytest.mark.parametrize("d,center,cells", [
-    (d, ce, cl) for d in (1, 5, 10, 32) for ce in (False, True)
+    (d, ce, cl) for d in (1, 5, 10, 16, 17, 20, 32) for ce in (False, True)
     for cl in (False, True)])
+# the CUDA kernel's widths held to the plain version at many shapes: its
+# groups of 2 (to d = 10), 4 (to 20) and 8 threads a matrix, d = 16 (the
+# widest a thread's loops unroll in the S-given entry), 17 and the
+# benchmark's 20
+CUDA_WIDTHS = (1, 5, 10, 16, 17, 20, 32)
 
 
 @GRAM_CASES
@@ -290,6 +295,36 @@ def test_gram_plain_matches_pallas_kernel_interpret(jck, d):
     want = np.asarray(jck.chol_solve_sample_tpu(S, rhs, z, interpret=True))
     np.testing.assert_allclose(np.concatenate(got).reshape(-1, d), want,
                                **TOL["float32"])
+
+
+def test_launch_counts_count_plain_calls_on_the_cpu():
+    """``launch_counts`` gives the two entries' launches and the plain
+    version's calls; on the CPU the plain version runs and no launch
+    counts."""
+    x = _gram_case(1, 2, 9, 5, 20, "float64", True, True)
+    before = tck.launch_counts()
+    assert set(before) == {"gram_fed", "s_given", "plain"}
+    tck.chol_gram_solve_sample(*_gram_args(x))
+    after = tck.launch_counts()
+    assert after["plain"] == before["plain"] + 1
+    assert all(after[k] == before[k] for k in before if k != "plain")
+
+
+def test_gram_kernel_widths_fit_shared_memory():
+    """The Gram-fed kernel's block (groups of 2 to 32 threads a matrix,
+    each row a record at an odd stride) fits the H100's 227 KB of shared
+    memory up to d = 149 in float32, and up to 77 and from 81 to 104 in
+    float64, where groups of 32 hold half as many records as groups of
+    16; the benchmark's d = 20 takes 35,688 and 71,376 bytes."""
+    assert [tck.gram_group(d) for d in (1, 10, 11, 20, 21, 40, 41, 80, 81)] \
+        == [2, 2, 4, 4, 8, 8, 16, 16, 32]
+    fits = {size: [d for d in range(1, 200)
+                   if tck.gram_smem_bytes(d, size) <= tck.SMEM_PER_BLOCK]
+            for size in (4, 8)}
+    assert fits[4] == list(range(1, 150))
+    assert fits[8] == list(range(1, 78)) + list(range(81, 105))
+    assert (tck.gram_smem_bytes(20, 4), tck.gram_smem_bytes(20, 8)) \
+        == (35688, 71376)
 
 
 def test_gram_cuda_wrapper_refuses_cpu_tensors():
@@ -336,3 +371,96 @@ def test_gram_cuda_kernel_takes_large_d(cuda_device, dtype):
     want = tck.chol_gram_solve_sample(*args, kernel=False)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("r", [70, 300, 1682])
+@pytest.mark.parametrize("L,extras", [(3, True), (3, False), (1, True)])
+@pytest.mark.parametrize("d", CUDA_WIDTHS)
+def test_gram_cuda_widths_match_plain(cuda_device, d, L, extras, r, dtype):
+    """The kernel against the plain version: every r leaves a ragged last
+    block (groups of 2, 4 or 8 threads a matrix take 64, 32 or 16 rows a
+    block), with and without centre and cells, and a launch of one lane, as
+    the active loop's chain makes."""
+    x = _gram_case(100 + d, L, r, 41, d, dtype, extras, extras)
+    args = _gram_args(x, cuda_device)
+    launches = tck.chol_gram_solve_sample_cuda.launches
+    got = tck.chol_gram_solve_sample(*args)
+    assert tck.chol_gram_solve_sample_cuda.launches == launches + 1
+    want = tck.chol_gram_solve_sample(*args, kernel=False)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("d", [5, 20])
+def test_gram_cuda_indefinite_matrix_gives_nan_on_its_row_only(
+        cuda_device, d, dtype):
+    """Row 37 of lane 1 gets a negative first pivot: the kernel gives NaN on
+    that row alone, and its neighbours in the block and in its warp keep
+    the plain version's values."""
+    x = _gram_case(7, 2, 70, 41, d, dtype, True, True)
+    args = list(_gram_args(x, cuda_device))
+    args[0] = args[0].clone()
+    args[0][1, 0, 37] = -1e3  # the Gram's (0, 0) entry
+    got = tck.chol_gram_solve_sample(*args).cpu().numpy()
+    want = tck.chol_gram_solve_sample(*args, kernel=False).cpu().numpy()
+    bad = np.isnan(got).any(axis=-1)
+    assert np.isnan(got[1, 37]).all() and np.isnan(want[1, 37]).all()
+    assert bad.sum() == 1 and np.isfinite(got[~bad]).all()
+    np.testing.assert_allclose(got[~bad], want[~bad], **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 20])
+def test_cuda_launch_counts_and_chain_span_say_b1_coop(cuda_device, d):
+    """Each launch counts under ``gram_fed``, and a chain's ``gibbs.chain``
+    span says ``b1_coop`` 1 where its row draws take the kernel and 0
+    where they take the plain version."""
+    from amf_tpu_torch import types as ttypes
+    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.utils import profiling
+
+    x = _gram_case(d, 2, 40, 30, d, "float32", True, True)
+    before = tck.launch_counts()
+    tck.chol_gram_solve_sample(*_gram_args(x, cuda_device))
+    after = tck.launch_counts()
+    assert after == dict(before, gram_fed=before["gram_fed"] + 1)
+
+    rng = np.random.default_rng(d)
+    known = rng.random((12, 15)) < 0.3
+    prob = ttypes.problem_from_dense(
+        rng.integers(1, 6, (12, 15)).astype(float), known,
+        dtype=torch.float32, device=cuda_device)
+    coop = {}
+    for kernel in (True, False):
+        chain = bpmf_gibbs.ChainState(
+            torch.randn(12, d, device=cuda_device),
+            torch.randn(15, d, device=cuda_device),
+            torch.tensor(3.0, device=cuda_device))
+        profiling.spans(reset=True)
+        with profiling.tracing():
+            bpmf_gibbs.run_chain(
+                chain, prob, bpmf_gibbs.GibbsConfig(latent_d=d), 2,
+                generator=torch.Generator(device=cuda_device).manual_seed(1),
+                chol_kernel=kernel)
+        (sp,) = [s for s in profiling.spans(reset=True)
+                 if s.name == "gibbs.chain"]
+        coop[kernel] = sp.attrs["b1_coop"]
+    assert coop == {True: 1, False: 0}
+
+
+@pytest.mark.cuda
+def test_gram_cuda_wrapper_refuses_a_width_past_shared_memory(cuda_device):
+    """d = 150 in float32 and d = 78 in float64 need more shared memory a
+    block than the card has: the wrapper says so before it builds a
+    library, and launches nothing."""
+    launches = tck.chol_gram_solve_sample_cuda.launches
+    for d, dtype in ((150, "float32"), (78, "float64")):
+        x = _gram_case(d, 1, 3, 2, d, dtype, False, False)
+        with pytest.raises(ValueError, match="shared memory"):
+            tck.chol_gram_solve_sample(*_gram_args(x, cuda_device))
+    assert tck.chol_gram_solve_sample_cuda.launches == launches
