@@ -43,9 +43,10 @@ the JAX package runs XLA's:
   ops           linesearch: the adaptive accept/reject and poly line searches
                 chol_kernel: Cholesky solve-and-sample, given S or fed from
                   the masked Gram products (csrc/chol_solve_sample.cu)
-                gram_kernel: the Gibbs draws' masked Gram products summed
-                  over the rated-cell index (csrc/masked_gram.cu), in
-                  place of the dense mask product below a crossover density
+                gram_kernel: the Gibbs draws' masked Gram products, each
+                  side of a problem in one of two forms it picks: the dense
+                  mask product, or below a crossover density on the card
+                  the sums over the rated-cell index (csrc/masked_gram.cu)
                 pmf_kernels: the index of the rated cells and, on it, the
                   per-lane value and gradients (csrc/pmf_value_grad.cu), the
                   line-search quartic's reductions (csrc/pmf_line_coeffs.cu)

@@ -99,27 +99,14 @@
 // (groups of 32 hold fewer records a block); ops/chol_kernel.py refuses a
 // wider D before it builds a library. Above D = 48 the register arrays
 // spill more and more, and nothing is measured there.
-//
-// Build-time knobs, for the probe (python -m amf_tpu_torch.ops.probe_kernels):
-// AMF_CHOL_THREADS (threads a block), AMF_CHOL_MIN_BLOCKS (the second
-// argument of __launch_bounds__ in the S-given entry), AMF_ONLY_D
-// (instantiate one D only) and AMF_CHOL_PROBE (adds a copy-only twin of
-// the S-given entry with the same loads and stores).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef AMF_CHOL_THREADS
-#define AMF_CHOL_THREADS 128
-#endif
-#ifndef AMF_CHOL_MIN_BLOCKS
-#define AMF_CHOL_MIN_BLOCKS 1
-#endif
-
 namespace {
 
-constexpr int kThreads = AMF_CHOL_THREADS;
-constexpr int kMinBlocks = AMF_CHOL_MIN_BLOCKS;
+constexpr int kThreads = 128;   // threads a block, both entries
+constexpr int kMinBlocks = 1;   // the S-given entry's __launch_bounds__
 constexpr int kMaxUnrolledD = 16;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -162,19 +149,10 @@ struct BatchMinorZ {
 };
 
 // The shared body. L holds S's lower triangle and is overwritten by the
-// factor; w holds b and is overwritten by x. With kCopyOnly (the probe) the
-// arithmetic is replaced by sums that keep every load alive.
-template <typename T, int D, bool kCopyOnly, typename Z>
+// factor; w holds b and is overwritten by x.
+template <typename T, int D, typename Z>
 __device__ __forceinline__ void factor_solve_sample(T (&L)[D * (D + 1) / 2],
                                                     T (&w)[D], const Z& z) {
-  if (kCopyOnly) {
-    T s = T(0);
-#pragma unroll (Unroll<D>::value)
-    for (int q = 0; q < D * (D + 1) / 2; ++q) s += L[q];
-#pragma unroll (Unroll<D>::value)
-    for (int j = 0; j < D; ++j) w[j] += z(j) + s;
-    return;
-  }
   // Cholesky-Crout, column by column: L(j,j) = sqrt(S(j,j) - sum_k L(j,k)^2),
   // L(i,j) = (S(i,j) - sum_k L(i,k) L(j,k)) / L(j,j). inv[j] = 1 / L(j,j).
   T inv[D];
@@ -217,7 +195,7 @@ __device__ __forceinline__ void factor_solve_sample(T (&L)[D * (D + 1) / 2],
 // ---------------------------------------------------------------------------
 // S, b, z given, batch-minor
 
-template <typename T, int D, bool kCopyOnly>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 chol_solve_sample_kernel(const T* __restrict__ S, const T* __restrict__ rhs,
                          const T* __restrict__ z, T* __restrict__ out,
@@ -234,7 +212,7 @@ chol_solve_sample_kernel(const T* __restrict__ S, const T* __restrict__ rhs,
   }
 #pragma unroll (Unroll<D>::value)
   for (int j = 0; j < D; ++j) w[j] = rhs[(int64_t)j * B + b];
-  factor_solve_sample<T, D, kCopyOnly>(L, w, BatchMinorZ<T>{z + b, B});
+  factor_solve_sample<T, D>(L, w, BatchMinorZ<T>{z + b, B});
 #pragma unroll (Unroll<D>::value)
   for (int j = 0; j < D; ++j) out[(int64_t)j * B + b] = w[j];
 }
@@ -507,11 +485,11 @@ chol_gram_kernel(GramArgs<T> a) {
 // ---------------------------------------------------------------------------
 // launches
 
-template <typename T, int D, bool kCopyOnly = false>
+template <typename T, int D>
 cudaError_t launch(const T* S, const T* rhs, const T* z, T* out, int64_t B,
                    cudaStream_t stream) {
   const int64_t blocks = (B + kThreads - 1) / kThreads;
-  chol_solve_sample_kernel<T, D, kCopyOnly>
+  chol_solve_sample_kernel<T, D>
       <<<(unsigned)blocks, kThreads, 0, stream>>>(S, rhs, z, out, B);
   return cudaGetLastError();
 }
@@ -612,14 +590,3 @@ extern "C" int amf_chol_solve_sample_f64(const double* S, const double* rhs,
   }
 AMF_GRAM_ENTRY(amf_chol_gram_solve_sample_f32, float)
 AMF_GRAM_ENTRY(amf_chol_gram_solve_sample_f64, double)
-
-#ifdef AMF_CHOL_PROBE
-// The S-given entry's copy-only twin at d = 10, f32: the same loads and
-// stores, no factorisation.
-extern "C" int amf_chol_copy_probe_f32(const float* S, const float* rhs,
-                                       const float* z, float* out,
-                                       long long B, void* stream) {
-  return (int)launch<float, 10, true>(S, rhs, z, out, (int64_t)B,
-                                      (cudaStream_t)stream);
-}
-#endif

@@ -3,7 +3,7 @@
 //
 // Replaces no Pallas kernel: the JAX package leaves this product to XLA, as a
 // dense matrix product of the shared 0/1 mask (amf_tpu/models/bpmf_gibbs.py).
-// The port did the same with cuBLAS (models/bpmf_gibbs._gram_products, still
+// The port did the same with cuBLAS (ops/gram_kernel.dense_gram, still
 // its path on the CPU and for dense masks). At the MovieLens-100k
 // configuration (943 x 1682, 5,000 rated cells: 0.315 %) that product spends
 // 99.7 % of its operations on zeros; summed over the rated cells the same

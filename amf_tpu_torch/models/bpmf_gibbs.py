@@ -14,14 +14,11 @@ Layout on the card:
     row, S_i = sum_j mask_ij v_j v_j^T, is each lane's packed lower triangle
     of v_j v_j^T summed over the row's shared rated cells, plus a one-cell
     correction for the lane's cell; the same holds for the right-hand side.
-    On the card, a problem no denser than
-    ``ops/gram_kernel.GRAM_INDEX_MAX_DENSITY`` sums them over the rated-cell
-    index (``ops/gram_kernel.masked_gram``, built once a chain); a denser
-    one, and every CPU tensor, forms them as one matrix product of the
-    shared mask (``_gram_products``, the JAX package's form);
+    Each side of the shared problem (``ops/gram_kernel.sides``, built once a
+    chain) forms those products in the form that module picks for it;
   * each row draw goes through the Cholesky solve-and-sample kernel
-    (ops/chol_kernel.py), which reads those products in the one layout both
-    paths leave and assembles S and the right-hand side itself;
+    (ops/chol_kernel.py), which reads those products and assembles S and
+    the right-hand side itself;
   * each lane draws the noise of a whole Gibbs round in one call on its own
     generator (utils/rng.py), so launches grow with lanes x rounds and the
     scores do not depend on how candidates are tiled.
@@ -41,8 +38,7 @@ import torch
 
 from amf_tpu_torch.models import pmf
 from amf_tpu_torch.ops import gram_kernel
-from amf_tpu_torch.ops.chol_kernel import chol_gram_solve_sample, tril_pairs
-from amf_tpu_torch.ops.pmf_kernels import rated_index
+from amf_tpu_torch.ops.chol_kernel import chol_gram_solve_sample
 from amf_tpu_torch.types import LaneCells, Problem
 from amf_tpu_torch.utils.linalg import cholesky_or_nan as _cholesky
 from amf_tpu_torch.utils.linalg import inverse_or_nan as _inverse
@@ -148,36 +144,8 @@ def sample_hyperparam(
 # Batched conditional factor draws
 
 
-def _gram_products(
-    mask: torch.Tensor, masked_r: torch.Tensor, other: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every lane's masked Gram and right-hand-side products, rows minor,
-    as the solve-and-sample kernel reads them: the dense path.
-
-    mask, masked_r (r, c) shared by all lanes, other (L, c, d). With
-    p = d (d + 1) / 2: Gt (L, p + d, r) holds, for every row i, the packed
-    lower triangle of sum_j mask_ij o_j o_j^T and then sum_j mask_ij o_j;
-    mrt (L, d, r) holds sum_j masked_r_ij o_j. Two matrix products over
-    every cell of the mask; only the p distinct products o_a o_b are
-    formed. ``ops/gram_kernel.masked_gram`` gives the same from the rated
-    cells alone.
-    """
-    L, c, d = other.shape
-    r = mask.shape[0]
-    a, b = tril_pairs(d, other.device)
-    p = a.shape[0]
-    ot = other.mT
-    Xt = other.new_empty((L, p + d, c))
-    torch.mul(ot[:, a], ot[:, b], out=Xt[:, :p])
-    Xt[:, p:] = ot
-    Gt = (Xt.view(L * (p + d), c) @ mask.T).view(L, p + d, r)
-    mrt = torch.bmm(Xt[:, p:], masked_r.T.expand(L, c, r))
-    return Gt, mrt
-
-
 def _sample_rows(
-    mask: torch.Tensor,
-    masked_r: torch.Tensor,
+    side: gram_kernel.Side,
     other: torch.Tensor,
     mu: torch.Tensor,
     alpha: torch.Tensor,
@@ -186,8 +154,6 @@ def _sample_rows(
     *,
     center: Optional[torch.Tensor] = None,
     cells: Optional[Tuple[torch.Tensor, ...]] = None,
-    chol_kernel: bool = True,
-    rows: Optional[gram_kernel.RatedRows] = None,
 ) -> torch.Tensor:
     """Draw all rows of one factor, for L lanes, from their conditionals.
 
@@ -195,25 +161,18 @@ def _sample_rows(
     mean S_i^{-1} (beta sum_j m_ij (r_ij - c) v_j + alpha mu)
     (reference: bayes_pmf.sample_feature :189-216, one row at a time).
 
-    mask (r, c) 0/1 and masked_r = mask * ratings (r, c) are shared by all
-    lanes; other (L, c, d), mu (L, d), alpha (L, d, d), z (L, r, d) standard
+    ``side`` (an ``ops/gram_kernel.sides`` side: the rated cells and
+    ratings of these rows, shared by all lanes) forms every lane's masked
+    Gram; other (L, c, d), mu (L, d), alpha (L, d, d), z (L, r, d) standard
     normals; ``center`` (L,) is subtracted from every rating (the chain's
     mean rating). ``cells`` = (row, col, dm, dr), each (L,), adds lane l's
     one hypothesised cell: the mask rises by dm and mask * ratings by dr at
-    (row, col). With ``rows`` (the rated cells of these rows, indexed) the
-    masked Gram is summed over them (``ops/gram_kernel.masked_gram``) and
-    ``mask`` and ``masked_r`` are not read; without, it is the dense
-    product ``_gram_products``. The draw itself, with the assembly of S and
-    the right-hand side, is ``ops/chol_kernel.chol_gram_solve_sample``:
-    ``chol_kernel`` picks its CUDA kernel or its plain version for CUDA
-    tensors.
+    (row, col). The draw itself, with the assembly of S and the right-hand
+    side, is ``ops/chol_kernel.chol_gram_solve_sample``.
     """
-    if rows is None:
-        Gt, mrt = _gram_products(mask, masked_r, other)
-    else:
-        Gt, mrt = gram_kernel.masked_gram(rows, other)
+    Gt, mrt = side.products(other)
     return chol_gram_solve_sample(Gt, mrt, z, alpha, mu, beta, center, cells,
-                                  other, kernel=chol_kernel)
+                                  other)
 
 
 class RoundNoise(NamedTuple):
@@ -251,38 +210,10 @@ def draw_round_noise(generators: Sequence[torch.Generator], n: int, m: int,
     )
 
 
-class _Base(NamedTuple):
-    """The shared problem as the row draws read it, both orientations: the
-    dense mask and masked ratings, or the rated-cell index."""
-
-    mask: Optional[torch.Tensor]  # (n, m) 0/1 float; None on the index path
-    masked_r: Optional[torch.Tensor]  # (n, m) rated * R_obs
-    mask_t: Optional[torch.Tensor]  # (m, n)
-    masked_r_t: Optional[torch.Tensor]
-    by_row: Optional[gram_kernel.RatedRows]  # U's rows (CSR); None if dense
-    by_col: Optional[gram_kernel.RatedRows]  # V's rows (CSC)
-    nnz: int  # rated cells
-
-
-def _base(problem: Problem, dtype) -> _Base:
-    """The dense form, or on the card below the crossover density
-    (``gram_kernel.use_index``) the index: built once a chain, as reading
-    the count and the index's ``nonzero`` synchronise the host."""
-    rated = problem.rated
-    nnz = int(rated.sum())
-    if gram_kernel.use_index(nnz, problem.shape, rated.device):
-        ix = rated_index(rated, problem.R_obs, dtype=dtype)
-        return _Base(None, None, None, None, *gram_kernel.index_sides(ix),
-                     nnz)
-    mask = rated.to(dtype)
-    masked_r = torch.where(rated, problem.R_obs, 0.0).to(dtype)
-    return _Base(mask, masked_r, mask.t().contiguous(),
-                 masked_r.t().contiguous(), None, None, nnz)
-
-
-def _gibbs_round(chain: ChainState, base: _Base, cfg: GibbsConfig,
-                 noise: RoundNoise, cells: Optional[LaneCells],
-                 deltas, chol_kernel: bool) -> ChainState:
+def _gibbs_round(chain: ChainState,
+                 sides: Tuple[gram_kernel.Side, gram_kernel.Side],
+                 cfg: GibbsConfig, noise: RoundNoise,
+                 cells: Optional[LaneCells], deltas) -> ChainState:
     mu_u, alpha_u = sample_hyperparam(
         chain.U, cfg, gamma=noise.gamma_u, normal_w=noise.normal_wu,
         normal_mu=noise.normal_mu_u)
@@ -294,25 +225,24 @@ def _gibbs_round(chain: ChainState, base: _Base, cfg: GibbsConfig,
     if cells is not None:
         cells_u = (cells.i, cells.j) + deltas
         cells_v = (cells.j, cells.i) + deltas
+    u_side, v_side = sides
     U, V = chain.U, chain.V
     for s in range(cfg.num_gibbs):
-        U = _sample_rows(base.mask, base.masked_r, V, mu_u, alpha_u, cfg.beta,
-                         noise.z_u[s], center=center, cells=cells_u,
-                         chol_kernel=chol_kernel, rows=base.by_row)
-        V = _sample_rows(base.mask_t, base.masked_r_t, U, mu_v, alpha_v,
-                         cfg.beta, noise.z_v[s], center=center, cells=cells_v,
-                         chol_kernel=chol_kernel, rows=base.by_col)
+        U = _sample_rows(u_side, V, mu_u, alpha_u, cfg.beta, noise.z_u[s],
+                         center=center, cells=cells_u)
+        V = _sample_rows(v_side, U, mu_v, alpha_v, cfg.beta, noise.z_v[s],
+                         center=center, cells=cells_v)
     return ChainState(U=U, V=V, mean_rating=chain.mean_rating)
 
 
 def gibbs_round(chain: ChainState, problem: Problem, cfg: GibbsConfig,
-                noise: RoundNoise, cells: Optional[LaneCells] = None,
-                chol_kernel: bool = True) -> ChainState:
+                noise: RoundNoise, cells: Optional[LaneCells] = None
+                ) -> ChainState:
     """One hyperparameter draw + num_gibbs factor sweeps for a lane-batched
     chain (reference: bayes_pmf.samples :277-302)."""
     deltas = cells.deltas(problem) if cells is not None else None
-    return _gibbs_round(chain, _base(problem, chain.U.dtype), cfg, noise,
-                        cells, deltas, chol_kernel)
+    return _gibbs_round(chain, gram_kernel.sides(problem, chain.U.dtype),
+                        cfg, noise, cells, deltas)
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +270,6 @@ def run_chain(
     value_bounds: Optional[Tuple[float, ...]] = None,
     keep_samples: bool = False,
     cells: Optional[LaneCells] = None,
-    chol_kernel: bool = True,
 ) -> Tuple[ChainState, PredStats, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Run ``num_samps`` Gibbs rounds, streaming prediction statistics.
 
@@ -351,11 +280,9 @@ def run_chain(
     counts of the discrete lookahead (reference: bayes_pmf._distribute
     :489-501). No (num_samps, n, m) tensor is formed: the sums of pred and
     pred^2 are accumulated in place. The chain is the span
-    ``gibbs.chain`` (its ``lanes``, ``rounds``, ``gram_index``: 1 where the
-    row draws sum the masked Gram over the rated-cell index, 0 where they
-    take the dense product, ``gram_nnz``, the rated cells, and ``b1_coop``:
-    1 where the row draws take the CUDA Cholesky kernel, which works each
-    matrix with a group of threads, 0 where they take its plain version).
+    ``gibbs.chain`` (its ``lanes``, ``rounds`` and ``gram_index``: 1 where
+    the row draws sum the masked Gram over the rated-cell index, 0 where
+    they take the dense product).
     """
     with span("gibbs.chain", rounds=num_samps) as sp:
         single = chain.U.dim() == 2
@@ -366,10 +293,8 @@ def run_chain(
         n, m = problem.shape
         L = chain.U.shape[0]
         dtype, device = chain.U.dtype, chain.U.device
-        base = _base(problem, dtype)
-        sp.set(lanes=L, gram_index=int(base.by_row is not None),
-               gram_nnz=base.nnz,
-               b1_coop=int(device.type == "cuda" and chol_kernel))
+        sides = gram_kernel.sides(problem, dtype)
+        sp.set(lanes=L, gram_index=int(sides[0].indexed))
         deltas = cells.deltas(problem) if cells is not None else None
         n_cut = len(cutoffs)
         cut = torch.as_tensor(cutoffs, dtype=dtype, device=device).reshape(
@@ -388,8 +313,7 @@ def run_chain(
         samples = []
         for _ in range(num_samps):
             noise = draw_round_noise(generators, n, m, cfg, dtype, device)
-            chain = _gibbs_round(chain, base, cfg, noise, cells, deltas,
-                                 chol_kernel)
+            chain = _gibbs_round(chain, sides, cfg, noise, cells, deltas)
             pred = chain.U @ chain.V.mT
             if cfg.subtract_mean:
                 pred.add_(chain.mean_rating[:, None, None])
@@ -428,7 +352,7 @@ def _lane_total_variance(
     seed: int, pmf_state: pmf.PMFState, problem: Problem,
     pcfg: pmf.PMFConfig, cfg: GibbsConfig, cand: torch.Tensor,
     vals: torch.Tensor, num_samps: int, fit_first: bool, fit_budget: int,
-    poly_ls: bool, chol_kernel: bool,
+    poly_ls: bool,
 ) -> torch.Tensor:
     """(C, V) total predictive variance after adding value vals[c, v] at
     candidate cand[c]: one lane per (candidate, value), all in lockstep."""
@@ -449,8 +373,7 @@ def _lane_total_variance(
                          poly_ls=poly_ls, lanes=cells)
     gens = lane_generators(seed, cand.tolist(), n_vals, problem.R_obs.device)
     _, stats, _ = run_chain(init_chain(pst), problem, cfg, num_samps,
-                            generators=gens, cells=cells,
-                            chol_kernel=chol_kernel)
+                            generators=gens, cells=cells)
     # total variance over ALL cells: the reference's lookahead calls
     # total_variance with which=Ellipsis (bayes_pmf.py:565-569)
     return stats.var.sum(dim=(-2, -1)).reshape(C, n_vals)
@@ -473,7 +396,6 @@ def exp_variance_scores(
     candidate_tile: int = 0,
     num_integration_pts: int = 50,
     poly_ls: bool = True,
-    chol_kernel: bool = True,
 ) -> torch.Tensor:
     """E[total Var[R]] after hypothetically observing each candidate cell.
 
@@ -527,7 +449,7 @@ def exp_variance_scores(
             sl = slice(t0, t0 + tile)
             evals[sl] = _lane_total_variance(
                 seed, pmf_state, problem, pcfg, cfg, cand[sl], vals_c[sl],
-                num_samps, fit_first, fit_budget, poly_ls, chol_kernel)
+                num_samps, fit_first, fit_budget, poly_ls)
 
         scores = (evals * w_c).sum(dim=-1)
         return torch.where(problem.queryable[ii, jj], scores, float("nan"))

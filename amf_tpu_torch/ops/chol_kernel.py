@@ -16,14 +16,12 @@ entry points, each with a wrapper that counts its launches:
     buffers; ``chol_solve_sample_cuda`` puts (B, d, d) inputs into that
     layout;
   * ``chol_gram_solve_sample`` is what the Gibbs row draws call. It takes
-    the masked Gram products in the layout both of their paths leave them
-    (``Gt``, the packed lower triangle of every row's Gram followed by
-    mask @ other, and ``mrt``, both row-minor: the dense matrix products of
-    ``models/bpmf_gibbs._gram_products``, or the sums over the rated-cell
-    index of ``ops/gram_kernel.masked_gram``) and the lane's prior and
-    cell, and the kernel assembles S and b itself
-    (``chol_gram_solve_sample_cuda``): nothing is transposed, unpacked or
-    assembled in PyTorch. A group of threads works each matrix
+    the masked Gram products in the layout ``ops/gram_kernel`` leaves them
+    in, whichever form made them (``Gt``, the packed lower triangle of
+    every row's Gram followed by mask @ other, and ``mrt``, both
+    row-minor) and the lane's prior and cell, and the kernel assembles S
+    and b itself (``chol_gram_solve_sample_cuda``): nothing is transposed,
+    unpacked or assembled in PyTorch. A group of threads works each matrix
     (``gram_group`` of them), with its block's rows staged in shared
     memory (``gram_smem_bytes``).
 
@@ -59,8 +57,8 @@ import torch
 from amf_tpu_torch.utils.linalg import cholesky_or_nan
 
 _SOURCE = "chol_solve_sample"
-# The Gram-fed kernel's threads a block, as csrc/chol_solve_sample.cu builds
-# it, and the shared memory a block may have on the H100 (opted in)
+# The Gram-fed kernel's threads a block (csrc/chol_solve_sample.cu's
+# kThreads), and the shared memory a block may have on the H100 (opted in)
 THREADS = 128
 SMEM_PER_BLOCK = 227 * 1024
 
@@ -75,12 +73,12 @@ def gram_group(d: int) -> int:
     return g
 
 
-def gram_smem_bytes(d: int, itemsize: int, threads: int = THREADS) -> int:
+def gram_smem_bytes(d: int, itemsize: int) -> int:
     """Shared memory a block of the Gram-fed kernel takes at width d
     (the source's ``coop_smem_bytes``): a record of p + 3 d values, at an
     odd stride, for each of its rows, and the lane's p + 2 d constants."""
     p = d * (d + 1) // 2
-    rows = threads // gram_group(d)
+    rows = THREADS // gram_group(d)
     return itemsize * (rows * ((p + 3 * d) | 1) + p + 2 * d)
 
 

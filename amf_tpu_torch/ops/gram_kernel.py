@@ -1,5 +1,5 @@
-"""The Gibbs row draws' masked Gram from the rated-cell index: CUDA kernel
-and plain version.
+"""The Gibbs row draws' masked Gram: its two forms, the rule between them,
+and the CUDA kernel and plain version of the index form.
 
 Every Gibbs half sweep (models/bpmf_gibbs._sample_rows) needs, for every
 lane l and row i of the factor being drawn, with o_j = other[l, j] and the
@@ -10,19 +10,25 @@ rated cells j of row i, the products the Cholesky kernel
                        (``tril_pairs`` order), then sum_j o_j;
     mrt (L, d, r):     sum_j r_ij o_j.
 
-The JAX package, and the port's dense path (``bpmf_gibbs._gram_products``),
-form them as matrix products of the shared 0/1 mask. Here they are summed
-over the rated cells alone, from the index the PMF kernels walk
-(``ops/pmf_kernels.rated_index``): by row (CSR) for the U side, by column
-(CSC) for the V side, ratings in the chain's dtype. The hand-written kernel
-is ``amf_tpu_torch/csrc/masked_gram.cu`` (it replaces no Pallas kernel: the
-JAX package leaves the product to XLA); ``masked_gram_plain`` is its plain
-PyTorch version.
+``sides(problem, dtype)`` gives, once a chain, the U side and the V side
+of a problem in one of two forms; each answers ``products(other)`` with
+(Gt, mrt) and says by ``indexed`` which form it is:
 
-Which path (``use_index``): a CUDA problem whose density nnz / (r c) is at
+  * ``DenseRows``, the dense form (``dense_gram``): two matrix products of
+    the shared 0/1 mask and the masked ratings, as the JAX package forms
+    them;
+  * ``RatedRows``, the index form (``masked_gram``): sums over the rated
+    cells alone, from the index the PMF kernels walk
+    (``ops/pmf_kernels.rated_index``), by row (CSR) for the U side and by
+    column (CSC) for the V side, ratings in the chain's dtype. The
+    hand-written kernel is ``amf_tpu_torch/csrc/masked_gram.cu`` (it
+    replaces no Pallas kernel: the JAX package leaves the product to XLA);
+    ``masked_gram_plain`` is its plain PyTorch version.
+
+Which form (``use_index``): a CUDA problem whose density nnz / (r c) is at
 most ``GRAM_INDEX_MAX_DENSITY`` takes the index; a denser one, and every
-CPU tensor, the dense product, which is the JAX reference's form and what
-the CPU tests hold the port to.
+CPU tensor, the dense form, which is the JAX reference's and what the CPU
+tests hold the port to.
 
 Dispatch of ``masked_gram``: a CPU tensor goes to the plain version; a
 CUDA tensor to the kernel, in float32 or float64, at any d (one library a
@@ -35,12 +41,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from amf_tpu_torch.ops.chol_kernel import tril_pairs
-from amf_tpu_torch.ops.pmf_kernels import RatedIndex
+from amf_tpu_torch.ops.pmf_kernels import RatedIndex, rated_index
+from amf_tpu_torch.types import Problem
 
 _SOURCE = "masked_gram"
 
@@ -54,12 +61,19 @@ GRAM_INDEX_MAX_DENSITY = 0.08
 
 
 class RatedRows(NamedTuple):
-    """The rated cells of one orientation, row by row: what the index Gram
-    walks for the factor whose rows they are."""
+    """The index form of one side: the rated cells of one orientation, row
+    by row, which the index Gram walks for the factor whose rows they
+    are."""
 
     ptr: torch.Tensor  # (r + 1,) int32, each row's first cell
     idx: torch.Tensor  # (nnz,) int32, each cell's row of ``other``
     vals: torch.Tensor  # (nnz,) each cell's rating, in the chain's dtype
+
+    indexed = True
+
+    def products(self, other: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return masked_gram(self, other)
 
 
 def index_sides(ix: RatedIndex) -> Tuple[RatedRows, RatedRows]:
@@ -181,8 +195,7 @@ def masked_gram(rows: RatedRows, other: torch.Tensor, kernel: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every lane's masked Gram and right-hand-side products of the rows
     ``rows`` indexes, summed over their rated cells -> (Gt, mrt), in the
-    layout of ``bpmf_gibbs._gram_products``. Dispatch as the module
-    docstring says."""
+    layout of ``dense_gram``. Dispatch as the module docstring says."""
     if other.device.type == "cpu" or (other.device.type == "cuda"
                                       and not kernel):
         return masked_gram_plain(rows, other)
@@ -190,3 +203,64 @@ def masked_gram(rows: RatedRows, other: torch.Tensor, kernel: bool = True
         raise ValueError(f"masked_gram runs on cpu or cuda, not "
                          f"{other.device}")
     return masked_gram_cuda(rows, other)
+
+
+# ---------------------------------------------------------------------------
+# the dense form, and the choice of form
+
+
+def dense_gram(
+    mask: torch.Tensor, masked_r: torch.Tensor, other: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every lane's masked Gram and right-hand-side products, rows minor,
+    as the solve-and-sample kernel reads them: the dense form.
+
+    mask, masked_r (r, c) shared by all lanes, other (L, c, d). With
+    p = d (d + 1) / 2: Gt (L, p + d, r) holds, for every row i, the packed
+    lower triangle of sum_j mask_ij o_j o_j^T and then sum_j mask_ij o_j;
+    mrt (L, d, r) holds sum_j masked_r_ij o_j. Two matrix products over
+    every cell of the mask; only the p distinct products o_a o_b are
+    formed. ``masked_gram`` gives the same from the rated cells alone.
+    """
+    L, c, d = other.shape
+    r = mask.shape[0]
+    a, b = tril_pairs(d, other.device)
+    p = a.shape[0]
+    ot = other.mT
+    Xt = other.new_empty((L, p + d, c))
+    torch.mul(ot[:, a], ot[:, b], out=Xt[:, :p])
+    Xt[:, p:] = ot
+    Gt = (Xt.view(L * (p + d), c) @ mask.T).view(L, p + d, r)
+    mrt = torch.bmm(Xt[:, p:], masked_r.T.expand(L, c, r))
+    return Gt, mrt
+
+
+class DenseRows(NamedTuple):
+    """The dense form of one side, in its orientation: the factor's rows
+    are the rows of both matrices."""
+
+    mask: torch.Tensor  # (r, c) 0/1, in the chain's dtype
+    masked_r: torch.Tensor  # (r, c) mask * ratings
+
+    indexed = False
+
+    def products(self, other: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return dense_gram(self.mask, self.masked_r, other)
+
+
+Side = Union[DenseRows, RatedRows]
+
+
+def sides(problem: Problem, dtype) -> Tuple[Side, Side]:
+    """(U side, V side) of ``problem`` in the form ``use_index`` picks, in
+    ``dtype``: built once a chain, as reading the count of rated cells and
+    the index's ``nonzero`` synchronise the host."""
+    rated = problem.rated
+    nnz = int(rated.sum())
+    if use_index(nnz, problem.shape, rated.device):
+        return index_sides(rated_index(rated, problem.R_obs, dtype=dtype))
+    mask = rated.to(dtype)
+    masked_r = torch.where(rated, problem.R_obs, 0.0).to(dtype)
+    return (DenseRows(mask, masked_r),
+            DenseRows(mask.t().contiguous(), masked_r.t().contiguous()))

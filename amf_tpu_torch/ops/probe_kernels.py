@@ -1,30 +1,12 @@
 """Probe of the port's CUDA kernels on the card: what the compiler made of
-them, how close the Cholesky kernel's launch can come to its bytes, and
-whether a longer queue of lanes hides the fused refit's slowest lane.
+them, and how close their launches come to their bounds.
 
     python -m amf_tpu_torch.ops.probe_kernels [--out results.json]
 
 1. ``ptxas -v`` of every source of ``csrc/`` as the package builds it for
    d = 10 and for d = 48 (a library of that one width): registers a
    thread, spills and static shared memory of every instantiation.
-2. ``csrc/chol_solve_sample.cu`` at d = 10 only, built once per (threads
-   a block, minimum blocks an SM of the S-given entry) setting with the
-   S-given entry's copy-only twin (``AMF_CHOL_PROBE``), all builds in
-   parallel. For each setting, at the Gibbs tile's larger batch (160 lanes
-   x 1682 rows = 269,120 matrices, float32): registers, the resident blocks
-   and warps an SM that follow, the waves of the grid, and the CUDA-event
-   time of the launches on the same buffers: the batch-minor entry, its
-   copy-only twin (the same loads and stores, no factorisation) and the
-   Gram-fed entry, also at 1696 rows a lane, where every stream of a lane
-   is 128-byte aligned.
-3. The fused refit (``pmf_lookahead_fused_cuda``) at the MovieLens-100k
-   shape of ``chip_smoke.py`` and the ``add_rmse_boosts`` CLI's values
-   (1,024 candidate cells at their true ratings, 200 steps, float32): one
-   launch of 1,024 lanes beside 8 launches of 128, in turns, with each
-   queue's evaluations. A launch ends with its slowest lane; with more
-   lanes than SMs a finished lane's SM takes the next lane. A figure only:
-   the tile width is the caller's.
-4. The three PMF kernels at d = 48 (``--wide-only`` runs this section
+2. The three PMF kernels at d = 48 (``--wide-only`` runs this section
    alone), at the shapes the d = 48 main paths of ``chip_smoke.py`` give
    them on 943 x 1682 (value+gradient (L, rows, d) at the CLI tile's 128
    lanes; (L, d, rows), the line coefficients and the fused line search,
@@ -33,19 +15,18 @@ whether a longer queue of lanes hides the fused refit's slowest lane.
    the wrapper's CUDA-event time, the launch's device time by the
    profiler, and a hash of the outputs, so that two builds of a source can
    be held bit for bit against each other.
-5. ``csrc/masked_gram.cu``, the Gibbs row draws' masked Gram from the
+3. ``csrc/masked_gram.cu``, the Gibbs row draws' masked Gram from the
    rated-cell index (``--gram`` runs this section alone): ``ptxas -v`` of
    its d = 20 instantiations and its library's nvcc seconds; at the two
    configurations' tile shapes (160 lanes on 943 x 1682 with 5,000 rated
    cells, 512 lanes on 70 x 306 with 400; d = 20), each side, float32 and
    float64: the kernel's CUDA-event and profiled device time beside its
-   byte bound, its plain version, and the dense matrix product it replaces
-   (``bpmf_gibbs._gram_products``, the ``library_ms`` yardstick), with the
+   byte bound, its plain version, and the dense form it replaces
+   (``gram_kernel.dense_gram``, the ``library_ms`` yardstick), with the
    relative gaps; then the crossover: both sides' kernel and dense times
    at 160 lanes, 943 x 1682, d = 20, over densities from 0.3 % to 100 %,
    in float32 and in float64.
-
-6. ``csrc/chol_solve_sample.cu``'s Gram-fed entry, B1 (``--chol`` runs
+4. ``csrc/chol_solve_sample.cu``'s Gram-fed entry, B1 (``--chol`` runs
    this section alone): at d = 10, 16, 17, 20, 32 and 48 the library the
    package builds (one a width), its nvcc seconds and ``ptxas -v``
    (registers, spills, stack frame); in float32 at the lookahead tile's two
@@ -62,7 +43,6 @@ Prints one JSON line per result; needs a CUDA card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import hashlib
 import json
 import re
@@ -78,13 +58,8 @@ from amf_tpu_torch.ops import cuda_build
 
 SOURCES = ("pmf_value_grad", "chol_solve_sample", "pmf_line_coeffs",
            "pmf_lookahead_fused")
-L, R, D = 160, 1682, 10
+R, D = 1682, 10
 WIDE_D = 48  # a width above the shared libraries' 32
-P = D * (D + 1) // 2
-R_ALIGNED = 1696  # the next multiple of 32 rows: every stream 128-byte aligned
-# (threads a block, minimum blocks an SM of the S-given entry)
-SETTINGS = [(128, 1), (256, 1), (64, 1), (128, 6)]
-SMS, REGS_SM, WARPS_SM, SMEM_SM = 132, 65536, 64, 233472
 REPS = 50
 
 
@@ -133,7 +108,7 @@ def summary(source: str, d: int = D):
                 spilled=[(r["kernel"][-40:], r["registers"],
                           r["spill_stores"]) for r in spilled][:12],
                 d10_f32=[r for r in rows
-                         if re.search(r"(kernelIfLi10ELb0E|Li16ELi512|"
+                         if re.search(r"(kernelIfLi10EE|Li16ELi512|"
                                       r"line_coeffsIfLi16E|fusedIf)",
                                       r["kernel"])][:8])
 
@@ -149,134 +124,6 @@ def cuda_ms(fn, reps=REPS):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
-
-
-def build_setting(setting):
-    """One (threads, minimum blocks) build at d = 10 with the copy twin."""
-    threads, min_blocks = setting
-    out = cuda_build.BUILD_DIR / "probe" / f"chol_{threads}_{min_blocks}.so"
-    defines = [f"AMF_CHOL_THREADS={threads}",
-               f"AMF_CHOL_MIN_BLOCKS={min_blocks}", f"AMF_ONLY_D={D}",
-               "AMF_CHOL_PROBE"]
-    return out, ptxas("chol_solve_sample", defines, out)
-
-
-def chol_setting(setting, out, rows, bufs, aligned):
-    """Time the launches of one built setting."""
-    from amf_tpu_torch.ops import chol_kernel as ck
-
-    lib = ctypes.CDLL(str(out))
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.amf_chol_solve_sample_f32.argtypes = [p] * 4 + [ll, i, p]
-    lib.amf_chol_gram_solve_sample_f32.argtypes = (
-        [p] * 12 + [ctypes.c_double] + [ll] * 5 + [i, p])
-    lib.amf_chol_copy_probe_f32.argtypes = [p] * 4 + [ll, p]
-    stream = torch.cuda.current_stream().cuda_stream
-    threads, min_blocks = setting
-    s_t, rhs_t, z_t, out_t, Gt, mrt, z, alpha, mu, x = (
-        t.data_ptr() for t in bufs)
-    Gt_a, mrt_a, z_a, x_a = (t.data_ptr() for t in aligned)
-
-    def call(fn, *args):
-        err = fn(*args)
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
-
-    times = dict(
-        batch_minor_ms=cuda_ms(lambda: call(
-            lib.amf_chol_solve_sample_f32, s_t, rhs_t, z_t, out_t, L * R, D,
-            stream)),
-        batch_minor_copy_ms=cuda_ms(lambda: call(
-            lib.amf_chol_copy_probe_f32, s_t, rhs_t, z_t, out_t, L * R,
-            stream)),
-        gram_ms=cuda_ms(lambda: call(
-            lib.amf_chol_gram_solve_sample_f32, Gt, mrt, z, alpha, mu, 0, 0,
-            0, 0, 0, 0, x, 2.0, L, R, 1, R * D, 0, D, stream)),
-        gram_aligned_rows_ms=cuda_ms(lambda: call(
-            lib.amf_chol_gram_solve_sample_f32, Gt_a, mrt_a, z_a, alpha, mu,
-            0, 0, 0, 0, 0, 0, x_a, 2.0, L, R_ALIGNED, 1, R_ALIGNED * D, 0, D,
-            stream)))
-    res = dict(threads=threads, min_blocks=min_blocks, **times)
-    for r in rows:
-        m = re.search(r"kernelI([fd])Li\d+E(?:Lb([01])E)?", r["kernel"])
-        if not m or m.group(1) != "f":  # the float32 instantiations only
-            continue
-        gram = "gram" in r["kernel"]
-        kind = ("gram" if gram else "batch_minor") + (
-            "_copy" if m.group(2) == "1" else "")
-        # the Gram-fed kernel's shared memory is dynamic, ptxas's static
-        smem = r["smem"] + (ck.gram_smem_bytes(D, 4, threads) if gram else 0)
-        by_regs = REGS_SM // (r["registers"] * threads)
-        by_smem = SMEM_SM // (smem + 1024) if smem else 99
-        blocks_sm = min(by_regs, by_smem, WARPS_SM * 32 // threads, 32)
-        rows_a_block = threads // ck.gram_group(D) if gram else threads
-        grid = (L * -(-R // rows_a_block) if gram
-                else -(-L * R // threads))
-        res[kind] = dict(
-            registers=r["registers"], spill_stores=r["spill_stores"],
-            smem=smem, blocks_sm=blocks_sm,
-            warps_sm=blocks_sm * threads // 32, grid=grid,
-            waves=grid / (SMS * blocks_sm))
-    return res
-
-
-def fused_workload(dev, lanes=1024, steps=200):
-    """The fused refit at the shape of ``chip_smoke.py`` and the CLI's
-    values -> run(lanes' slice) giving the launcher's outputs."""
-    import numpy as np
-
-    from amf_tpu_torch import types
-    from amf_tpu_torch.data.synthetic import make_fake_data
-    from amf_tpu_torch.models import pmf
-    from amf_tpu_torch.ops import pmf_kernels as pk
-    from amf_tpu_torch.utils.rng import generator
-
-    n, m = 943, R
-    real, known, _ = make_fake_data(
-        num_users=n, num_items=m, rank=D, noise=0.5,
-        mask_type=0.05 * 100000 / (n * m), rng=np.random.default_rng(0))
-    real = np.clip(np.round(real - real.mean() + 3.0), 1.0, 5.0)
-    prob = types.problem_from_dense(real, known, dtype=torch.float32,
-                                    device=dev)
-    cfg = pmf.PMFConfig(latent_d=D, max_fit_steps=200)
-    st = pmf.init_state(generator(7, dev), n, m, cfg, prob,
-                        dtype=torch.float32, device=dev)
-    st, _ = pmf.fit(st, prob, cfg)
-    cand = torch.nonzero(prob.queryable.flatten())[:lanes, 0]
-    di, dj = cand // m, cand % m
-    dv = torch.as_tensor(real, dtype=torch.float32, device=dev)[di, dj]
-    sig = torch.stack([st.sigma_sq, st.sigma_u_sq, st.sigma_v_sq])
-    ls = torch.tensor([cfg.learning_rate, cfg.stop_thresh,
-                       cfg.min_learning_rate], device=dev)
-    index = pk.rated_index(prob.rated, prob.R_obs)
-    base = (st.U.mT.contiguous(), st.V.mT.contiguous(), prob.R_obs,
-            prob.rated)
-
-    def run(s):
-        return pk.pmf_lookahead_fused_cuda(*base, di[s], dj[s], dv[s], sig,
-                                           ls, steps, False, index=index)
-
-    return run
-
-
-def fused_queue(run, lanes=1024, tile=128):
-    """One fused-refit launch of ``lanes`` lanes beside ``lanes / tile``
-    launches of ``tile``: ms of each, in turns."""
-    tiles = [slice(c, c + tile) for c in range(0, lanes, tile)]
-
-    def one():
-        return run(slice(0, lanes))[3]
-
-    def many():
-        return torch.cat([run(s)[3] for s in tiles])
-
-    same = torch.equal(one(), many())
-    t = [cuda_ms(f, 3) for f in (one, many, many, one)]
-    evals = one().view(len(tiles), tile)
-    return dict(lanes=lanes, tile=tile, one_launch_ms=(t[0] + t[3]) / 2,
-                tiled_launches_ms=(t[1] + t[2]) / 2, same_evaluations=same,
-                evals_total=int(evals.sum()), evals_max=int(evals.max()),
-                evals_max_by_tile=evals.max(dim=1).values.tolist())
 
 
 def device_ms(fn, name_part: str, reps: int = 10) -> float:
@@ -309,7 +156,7 @@ def outputs_hash(out) -> str:
 
 
 def wide_kernels(dev):
-    """Section 4: the PMF kernels at d = 48, one row a (kernel, shape,
+    """Section 2: the PMF kernels at d = 48, one row a (kernel, shape,
     dtype)."""
     from amf_tpu_torch.models import pmf
     from amf_tpu_torch.ops import pmf_kernels as pk
@@ -448,7 +295,6 @@ def gram_cell_rows(dev, cells=None, d=GRAM_D,
     tile shapes on uniform masks; each side: its times beside its bound,
     its plain version and the dense product it replaces, and its relative
     gaps to both (also ``chip_smoke.py``'s phase 2 and kernel row)."""
-    from amf_tpu_torch.models import bpmf_gibbs
     from amf_tpu_torch.ops import gram_kernel
 
     def rel(a, b):
@@ -467,7 +313,7 @@ def gram_cell_rows(dev, cells=None, d=GRAM_D,
                 launches = gram_kernel.masked_gram_cuda.launches
                 got = gram_kernel.masked_gram(idx, other)
                 plain = gram_kernel.masked_gram(idx, other, kernel=False)
-                dense = bpmf_gibbs._gram_products(mask, masked_r, other)
+                dense = gram_kernel.dense_gram(mask, masked_r, other)
                 row = dict(
                     section="gram", cell=cell, side=side,
                     dtype=str(dtype)[6:], L=L, r=r, c=c, d=d, nnz=nnz,
@@ -481,7 +327,7 @@ def gram_cell_rows(dev, cells=None, d=GRAM_D,
                                             other.element_size()),
                     plain_ms=cuda_ms(lambda: gram_kernel.masked_gram(
                         idx, other, kernel=False), 5),
-                    library_ms=cuda_ms(lambda: bpmf_gibbs._gram_products(
+                    library_ms=cuda_ms(lambda: gram_kernel.dense_gram(
                         mask, masked_r, other), 10))
                 rows.append(row)
                 print("gram " + json.dumps(row), flush=True)
@@ -492,8 +338,7 @@ def gram_cell_rows(dev, cells=None, d=GRAM_D,
 
 
 def gram_section(dev):
-    """Section 5 of the module docstring -> its rows."""
-    from amf_tpu_torch.models import bpmf_gibbs
+    """Section 3 of the module docstring -> its rows."""
     from amf_tpu_torch.ops import gram_kernel
 
     rows = []
@@ -522,7 +367,7 @@ def gram_section(dev):
                 row[f"{side}_index_ms"] = cuda_ms(
                     lambda: gram_kernel.masked_gram(idx, other), 10)
                 row[f"{side}_dense_ms"] = cuda_ms(
-                    lambda: bpmf_gibbs._gram_products(mask, masked_r, other),
+                    lambda: gram_kernel.dense_gram(mask, masked_r, other),
                     10)
             row["index_ms"] = row["U_index_ms"] + row["V_index_ms"]
             row["dense_ms"] = row["U_dense_ms"] + row["V_dense_ms"]
@@ -548,7 +393,7 @@ CHOL_SHAPES = {torch.float32: ((160, 943, 1682), (160, 1682, 943),
 def _chol_inputs(dev, L, r, c, d, dtype, seed=0):
     """A row draw of L lanes at the cells' density (5,000 rated of
     943 x 1682), with centre and cells: the wrapper's arguments."""
-    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.ops import gram_kernel
 
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -562,7 +407,7 @@ def _chol_inputs(dev, L, r, c, d, dtype, seed=0):
     other = 0.5 * rand(L, c, d)
     A = rand(L, d, d)
     alpha = A @ A.mT / d + 0.5 * torch.eye(d, dtype=dtype, device=dev)
-    Gt, mrt = bpmf_gibbs._gram_products(mask, masked_r, other)
+    Gt, mrt = gram_kernel.dense_gram(mask, masked_r, other)
     cells = (torch.randint(0, r, (L,), generator=gen, device=dev),
              torch.randint(0, c, (L,), generator=gen, device=dev),
              torch.ones(L, dtype=dtype, device=dev), rand(L))
@@ -583,7 +428,7 @@ def _chol_bound_ms(L, r, d, dtype):
 
 
 def chol_section(dev):
-    """Section 6: B1 as the package builds it, one row a (width, shape,
+    """Section 4: B1 as the package builds it, one row a (width, shape,
     dtype)."""
     from amf_tpu_torch.ops import chol_kernel as ck
 
@@ -637,58 +482,26 @@ def _chol_row(ck, args, want, row):
     return row
 
 
-def probe_sections_1_to_3(dev, results):
-    """Sections 1 to 3 of the module docstring, into ``results``."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def rand(*shape):
-        return torch.randn(*shape, generator=gen, device=dev)
-
-    # SPD matrices like the chain's, in both layouts
-    W = rand(L, 48, D)
-    full = torch.eye(D, device=dev) + 2.0 * (W.mT @ W)  # (L, D, D)
-    a, b = torch.tril_indices(D, D, device=dev)
-    packed = torch.cat([full[:, a, b], rand(L, D)], dim=1)[:, :, None]
-
-    def gram(rows):
-        return packed.expand(L, P + D, rows) + 0.01 * rand(1, 1, rows)
-
-    Gt = gram(R)
-    aligned = (gram(R_ALIGNED), rand(L, D, R_ALIGNED), rand(L, R_ALIGNED, D),
-               torch.empty(L, R_ALIGNED, D, device=dev))
-    alpha = torch.eye(D, device=dev).expand(L, D, D).contiguous()
-    bufs = (full.reshape(L, 1, D * D).expand(L, R, D * D).reshape(
-        L * R, D * D).t().contiguous(), rand(D, L * R), rand(D, L * R),
-        torch.empty(D, L * R, device=dev), Gt, rand(L, D, R), rand(L, R, D),
-        alpha, rand(L, D), torch.empty(L, R, D, device=dev))
+def ptxas_section(results):
+    """Section 1 of the module docstring, into ``results``."""
     with ThreadPoolExecutor(6) as pool:
-        futs = [pool.submit(summary, s, d) for d in (D, WIDE_D)
-                for s in SOURCES]
-        # build every setting first (in parallel), then time one at a time
-        builds = list(pool.map(build_setting, SETTINGS))
-        for setting, (out, rows) in zip(SETTINGS, builds):
-            row = chol_setting(setting, out, rows, bufs, aligned)
-            results["chol"].append(row)
-            print("chol-setting " + json.dumps(row), flush=True)
-        for f in futs:
-            row = f.result()
+        for row in pool.map(lambda a: summary(*a),
+                            [(s, d) for d in (D, WIDE_D) for s in SOURCES]):
             results["ptxas"].append(row)
             print("ptxas " + json.dumps(row), flush=True)
-    results["fused_queue"] = fused_queue(fused_workload(dev))
-    print("fused_queue " + json.dumps(results["fused_queue"]), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the results here")
     ap.add_argument("--wide-only", action="store_true",
-                    help="run section 4 (the PMF kernels at d = 48) alone, "
+                    help="run section 2 (the PMF kernels at d = 48) alone, "
                          "with ptxas -v of their d = 48 libraries")
     ap.add_argument("--gram", action="store_true",
-                    help="run section 5 (the masked Gram from the index) "
+                    help="run section 3 (the masked Gram from the index) "
                          "alone")
     ap.add_argument("--chol", action="store_true",
-                    help="run section 6 (B1 at d = 10 to 48) alone")
+                    help="run section 4 (B1 at d = 10 to 48) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -697,7 +510,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    results = dict(card=card, ptxas=[], chol=[])
+    results = dict(card=card, ptxas=[])
     dev = torch.device("cuda")
     if args.chol:
         results["chol_b1"] = chol_section(dev)
@@ -713,7 +526,7 @@ def main(argv=None) -> int:
                 results["ptxas"].append(f.result())
                 print("ptxas " + json.dumps(results["ptxas"][-1]), flush=True)
     else:
-        probe_sections_1_to_3(dev, results)
+        ptxas_section(results)
     if not (args.gram or args.chol):
         results["wide"] = wide_kernels(dev)
         results["gram"] = gram_section(dev)

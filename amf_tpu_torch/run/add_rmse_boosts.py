@@ -44,19 +44,6 @@ class BoostTile(NamedTuple):
     V: torch.Tensor  # (L, m, d)
 
 
-def _refit_rmses(state, problem, cfg, real, di, dj, dv, max_steps,
-                 use_pallas) -> BoostTile:
-    U, V, f = pmf.fit_lookahead_batch(
-        state, problem, di, dj, dv, cfg, max_steps=max_steps,
-        use_pallas=use_pallas)
-    with span("boost.rmse", lanes=int(U.shape[0])):
-        rmse = torch.cat([
-            masked_rmse(U[s:s + RMSE_CHUNK] @ V[s:s + RMSE_CHUNK].mT, real,
-                        problem.test)
-            for s in range(0, U.shape[0], RMSE_CHUNK)])
-    return BoostTile(rmse, f, U, V)
-
-
 def boost_tile(
     state: pmf.PMFState, problem: Problem, cfg: pmf.PMFConfig,
     real: torch.Tensor, cand: torch.Tensor, max_steps: int,
@@ -77,19 +64,15 @@ def boost_tile(
     with span("boost.tile", lanes=int(cand.shape[0])):
         m = problem.shape[1]
         di, dj = cand // m, cand % m
-        return _refit_rmses(state, problem, cfg, real, di, dj, real[di, dj],
-                            max_steps, use_pallas)
-
-
-def tile_rmses(
-    state: pmf.PMFState, problem: Problem, cfg: pmf.PMFConfig,
-    real: torch.Tensor, di: torch.Tensor, dj: torch.Tensor, dv: torch.Tensor,
-    max_steps: int, use_pallas: bool = True,
-) -> torch.Tensor:
-    """(L,) test RMSE after refitting each lane with the rating (di, dj, dv)
-    added: ``boost_tile``'s work for any hypothesised values."""
-    return _refit_rmses(state, problem, cfg, real, di, dj, dv, max_steps,
-                        use_pallas).rmse
+        U, V, f = pmf.fit_lookahead_batch(
+            state, problem, di, dj, real[di, dj], cfg, max_steps=max_steps,
+            use_pallas=use_pallas)
+        with span("boost.rmse", lanes=int(U.shape[0])):
+            rmse = torch.cat([
+                masked_rmse(U[s:s + RMSE_CHUNK] @ V[s:s + RMSE_CHUNK].mT,
+                            real, problem.test)
+                for s in range(0, U.shape[0], RMSE_CHUNK)])
+        return BoostTile(rmse, f, U, V)
 
 
 def main(argv=None):

@@ -576,6 +576,7 @@ def gram_rows(device):
     import torch
     from amf_tpu_torch.models import bpmf_gibbs
     from amf_tpu_torch.ops import chol_kernel as ck
+    from amf_tpu_torch.ops import gram_kernel
 
     gen = torch.Generator(device=device).manual_seed(2)
     beta = 2.0
@@ -618,7 +619,7 @@ def gram_rows(device):
                 col = torch.randint(0, c, (L,), generator=gen, device=device)
                 dm = (torch.arange(L, device=device) % 2).to(dtype)
                 cells = (row, col, dm, rand(L))
-            Gt, mrt = bpmf_gibbs._gram_products(mask, masked_r, other)
+            Gt, mrt = gram_kernel.dense_gram(mask, masked_r, other)
             args = (Gt, mrt, z, alpha, mu, beta, center, cells, other)
             got = ck.chol_gram_solve_sample(*args)
             want = ck.chol_gram_solve_sample(*args, kernel=False)
@@ -643,13 +644,15 @@ def gram_rows(device):
                     lambda: ck.chol_gram_solve_sample(*args),
                     "chol_gram_kernel")
                 # from the Gram products to x: earlier way, new, new, earlier
-                sr = (mask, masked_r, other, mu, alpha, beta, z)
+                sr = (other, mu, alpha, beta, z)
+                side = gram_kernel.DenseRows(mask, masked_r)
 
                 def old():
-                    return sample_rows_assembled(ck, *sr, center, cells)
+                    return sample_rows_assembled(ck, mask, masked_r, *sr,
+                                                 center, cells)
 
                 def new():
-                    return bpmf_gibbs._sample_rows(*sr, center=center,
+                    return bpmf_gibbs._sample_rows(side, *sr, center=center,
                                                    cells=cells)
 
                 both = (old().sub_(new()).abs_() / (1 + want.abs())).max()
@@ -3151,11 +3154,11 @@ def main() -> int:
           f"{head['setup_s']:.2f}", flush=True)
     cand = cand32 = head["cand"][:TILE]
 
-    def tile(dtype_pst, dtype_prob, dtype_stats, kernel=True):
+    def tile(dtype_pst, dtype_prob, dtype_stats):
         return bpmf_gibbs.exp_variance_scores(
             3, dtype_pst, dtype_prob, pcfg, gcfg, dtype_stats, VALS,
             num_samps=LA_SAMPS, fit_budget=FIT_BUDGET, cand=cand,
-            n_base_samples=BASE_SAMPS, poly_ls=True, chol_kernel=kernel)
+            n_base_samples=BASE_SAMPS, poly_ls=True)
 
     scores = head["scores"][0]
     # the headline's launches, counted in phase 37 (phase 2 has launched the
@@ -3252,16 +3255,22 @@ def main() -> int:
                                      for x in stats))
     prob64 = prob.to(dtype=torch.float64)
     t0 = time.perf_counter()
-    s_kernel = tile(pst64, prob64, stats64, kernel=True)
+    s_kernel = tile(pst64, prob64, stats64)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     check(ck.chol_gram_solve_sample_cuda.launches == main_launches + draws
           and ck.chol_solve_sample_reference.calls == 0,
           "the f64 tile did not go through the Gram-fed kernel alone")
-    t0 = time.perf_counter()
-    s_plain = tile(pst64, prob64, stats64, kernel=False)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
+    # the row draws through the plain version for this one tile
+    bpmf_gibbs.chol_gram_solve_sample = functools.partial(
+        ck.chol_gram_solve_sample, kernel=False)
+    try:
+        t0 = time.perf_counter()
+        s_plain = tile(pst64, prob64, stats64)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        bpmf_gibbs.chol_gram_solve_sample = ck.chol_gram_solve_sample
     rel = ((s_kernel - s_plain).abs() / s_plain.abs()).max().item()
     print(json.dumps(dict(
         phase="lookahead_f64_kernel_vs_plain", max_rel_diff=rel,

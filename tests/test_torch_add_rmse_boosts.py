@@ -36,7 +36,7 @@ def data():
     return real, known, test
 
 
-def test_tile_rmses_match_jax(data):
+def test_boost_tile_rmses_match_jax(data):
     real, known, test = data
     ratings = np.argwhere(known)
     ratings = np.column_stack([ratings, real[known]])
@@ -61,11 +61,10 @@ def test_tile_rmses_match_jax(data):
 
     tprob = convert.problem(jprob, device="cpu", dtype=torch.float32)
     real_t = torch.as_tensor(real, dtype=torch.float32)
-    ti, tj = torch.as_tensor(q // m), torch.as_tensor(q % m)
-    got = tcli.tile_rmses(
+    got = tcli.boost_tile(
         convert.pmf_state(jst, device="cpu", dtype=torch.float32), tprob,
-        tpmf.PMFConfig(**jcfg._asdict()), real_t, ti, tj, real_t[ti, tj],
-        STEPS, use_pallas=False)
+        tpmf.PMFConfig(**jcfg._asdict()), real_t, torch.as_tensor(q), STEPS,
+        use_pallas=False).rmse
     assert got.shape == (10,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
 

@@ -175,12 +175,17 @@ def test_sample_rows_matches_jax_with_its_draws(case, path):
     masked Gram from the dense product or summed over the rated-cell index
     (the plain version, on the CPU)."""
     jprob, jst, tprob = case["jprob"], case["jst"], case["tprob"]
+    mask = tprob.rated.double()
 
-    def rows(R, side):
-        if path == "dense":
-            return None
-        return gram_kernel.index_sides(rated_index(
-            tprob.rated, R, dtype=torch.float64))[side]
+    def side(R, t):
+        """The U (t = 0) or V (t = 1) side of the rated cells with R."""
+        if path == "index":
+            return gram_kernel.index_sides(rated_index(
+                tprob.rated, R, dtype=torch.float64))[t]
+        dense = (mask, mask * R)
+        if t:
+            dense = tuple(x.T.contiguous() for x in dense)
+        return gram_kernel.DenseRows(*dense)
 
     rng = np.random.default_rng(2)
     mu = rng.normal(size=2)
@@ -191,10 +196,8 @@ def test_sample_rows_matches_jax_with_its_draws(case, path):
     r_c = jprob.R_obs - jst.mean_rating
     want = jbg._sample_rows(key, jprob.rated, r_c, jst.V, jnp.asarray(mu),
                             jnp.asarray(alpha), 2.0)
-    mask = tprob.rated.double()
-    got = tbg._sample_rows(mask, mask * _t(r_c), _t(jst.V)[None],
-                           _t(mu)[None], _t(alpha)[None], 2.0, z[None],
-                           rows=rows(_t(r_c), 0))
+    got = tbg._sample_rows(side(_t(r_c), 0), _t(jst.V)[None], _t(mu)[None],
+                           _t(alpha)[None], 2.0, z[None])
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=RTOL)
 
     q = np.argwhere(np.asarray(jprob.queryable))[:2]
@@ -206,10 +209,9 @@ def test_sample_rows_matches_jax_with_its_draws(case, path):
     zs = torch.stack([_t(jax.random.normal(k, (5, 2), dtype=F64))
                       for k in keys])
     got = tbg._sample_rows(
-        mask.T.contiguous(), (mask * tprob.R_obs).T.contiguous(),
-        _t(jst.U).expand(2, 6, 2), _t(mu).expand(2, 2),
+        side(tprob.R_obs, 1), _t(jst.U).expand(2, 6, 2), _t(mu).expand(2, 2),
         _t(alpha).expand(2, 2, 2), 2.0, zs, center=center,
-        cells=(lanes.j, lanes.i, dm, dr), rows=rows(tprob.R_obs, 1))
+        cells=(lanes.j, lanes.i, dm, dr))
     for l, ((i, j), v) in enumerate(zip(q, [3.0, 1.0])):
         p2 = jprob.add_rating(int(i), int(j), v)
         want = jbg._sample_rows(keys[l], p2.rated.T,
@@ -227,7 +229,7 @@ def test_gram_products_are_the_packed_masked_gram():
     mask = _t((rng.random((r, c)) < 0.5).astype(float))
     masked_r = mask * _t(rng.integers(1, 6, (r, c)).astype(float))
     other = _t(rng.normal(size=(L, c, d)))
-    Gt, mrt = tbg._gram_products(mask, masked_r, other)
+    Gt, mrt = gram_kernel.dense_gram(mask, masked_r, other)
     p = d * (d + 1) // 2
     assert Gt.shape == (L, p + d, r) and mrt.shape == (L, d, r)
     assert Gt.is_contiguous() and mrt.is_contiguous()
@@ -259,9 +261,9 @@ def test_sample_rows_takes_strided_noise_and_expanded_factors(case):
     mask = tprob.rated.double()
     alpha = torch.eye(2, dtype=torch.float64).expand(3, 2, 2)
     mu = torch.zeros(3, 2, dtype=torch.float64)
-    args = (mask, mask * tprob.R_obs)
-    got = tbg._sample_rows(*args, other, mu, alpha, 2.0, z)
-    want = tbg._sample_rows(*args, other.contiguous(), mu, alpha.contiguous(),
+    side = gram_kernel.DenseRows(mask, mask * tprob.R_obs)
+    got = tbg._sample_rows(side, other, mu, alpha, 2.0, z)
+    want = tbg._sample_rows(side, other.contiguous(), mu, alpha.contiguous(),
                             2.0, z.contiguous())
     assert got.shape == (3, 6, 2)
     torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -16,6 +16,8 @@ run on a card host without JAX:
 ``python -m pytest --noconftest tests/test_torch_chol_kernel.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -416,13 +418,14 @@ def test_gram_cuda_indefinite_matrix_gives_nan_on_its_row_only(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [5, 20])
-def test_cuda_launch_counts_and_chain_span_say_b1_coop(cuda_device, d):
-    """Each launch counts under ``gram_fed``, and a chain's ``gibbs.chain``
-    span says ``b1_coop`` 1 where its row draws take the kernel and 0
-    where they take the plain version."""
+def test_cuda_launch_counts_and_chain_launches_b1_once_a_half_sweep(
+        cuda_device, d, monkeypatch):
+    """Each launch counts under ``gram_fed``, and a chain's row draws launch
+    the kernel once a half sweep; with the plain version put in its place
+    for the call, they launch nothing and call the plain version as
+    often."""
     from amf_tpu_torch import types as ttypes
     from amf_tpu_torch.models import bpmf_gibbs
-    from amf_tpu_torch.utils import profiling
 
     x = _gram_case(d, 2, 40, 30, d, "float32", True, True)
     before = tck.launch_counts()
@@ -435,22 +438,25 @@ def test_cuda_launch_counts_and_chain_span_say_b1_coop(cuda_device, d):
     prob = ttypes.problem_from_dense(
         rng.integers(1, 6, (12, 15)).astype(float), known,
         dtype=torch.float32, device=cuda_device)
-    coop = {}
+    cfg = bpmf_gibbs.GibbsConfig(latent_d=d)
+    draws = 2 * cfg.num_gibbs * 2  # rounds x sweeps x (U, V)
     for kernel in (True, False):
         chain = bpmf_gibbs.ChainState(
             torch.randn(12, d, device=cuda_device),
             torch.randn(15, d, device=cuda_device),
             torch.tensor(3.0, device=cuda_device))
-        profiling.spans(reset=True)
-        with profiling.tracing():
+        with monkeypatch.context() as mp:
+            if not kernel:
+                mp.setattr(bpmf_gibbs, "chol_gram_solve_sample",
+                           functools.partial(tck.chol_gram_solve_sample,
+                                             kernel=False))
+            before = tck.launch_counts()
             bpmf_gibbs.run_chain(
-                chain, prob, bpmf_gibbs.GibbsConfig(latent_d=d), 2,
-                generator=torch.Generator(device=cuda_device).manual_seed(1),
-                chol_kernel=kernel)
-        (sp,) = [s for s in profiling.spans(reset=True)
-                 if s.name == "gibbs.chain"]
-        coop[kernel] = sp.attrs["b1_coop"]
-    assert coop == {True: 1, False: 0}
+                chain, prob, cfg, 2,
+                generator=torch.Generator(device=cuda_device).manual_seed(1))
+            after = tck.launch_counts()
+        key = "gram_fed" if kernel else "plain"
+        assert after == dict(before, **{key: before[key] + draws})
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The Gibbs row draws' masked Gram from the rated-cell index
 (amf_tpu_torch/ops/gram_kernel.py) against the dense product of the mask
-(models/bpmf_gibbs._gram_products), and the rule that picks between them.
+(``gram_kernel.dense_gram``), and the rule that picks between them.
 
 The two paths sum the same products in other orders: the plain index
 version agrees with the dense product to 1e-5 (relative Frobenius) in
@@ -75,7 +75,7 @@ def test_index_gram_matches_the_dense_product(d, L, density, side, dtype):
     rated, R = _problem(d * 10 + L, 23, 41, 0.3 if empty else density, dtype,
                         empty=empty)
     mask, masked_r, other, rows = _sides(rated, R, dtype, L, d, seed=L)[side]
-    want = tbg._gram_products(mask, masked_r, other)
+    want = tgk.dense_gram(mask, masked_r, other)
     got = tgk.masked_gram(rows, other)
     p = d * (d + 1) // 2
     r = mask.shape[0]
@@ -99,6 +99,31 @@ def test_the_path_follows_the_density(nnz, shape, device, want):
     assert tgk.use_index(nnz, shape, device) is want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("path", ["dense", "index"])
+def test_sides_take_the_form_the_rule_picks(monkeypatch, path, dtype):
+    """``sides`` gives both sides in the form ``use_index`` picks (read at
+    call time, so a test can force the index on the CPU), in the chain's
+    dtype; each side's products are the dense form's of its orientation."""
+    from amf_tpu_torch import types as ttypes
+
+    rated, R = _problem(3, 11, 17, 0.3, torch.float64)
+    prob = ttypes.problem_from_dense(R.numpy(), rated.numpy(),
+                                     dtype=torch.float64, device="cpu")
+    if path == "index":
+        monkeypatch.setattr(tgk, "use_index", lambda *a: True)
+    u_side, v_side = tgk.sides(prob, dtype)
+    dense = _sides(rated, R, dtype, 2, 3, seed=4)
+    for side, name in ((u_side, "U"), (v_side, "V")):
+        mask, masked_r, other, _ = dense[name]
+        assert side.indexed is (path == "index")
+        assert isinstance(side, tgk.RatedRows if side.indexed
+                          else tgk.DenseRows)
+        for g, w in zip(side.products(other),
+                        tgk.dense_gram(mask, masked_r, other)):
+            assert g.dtype == dtype and _rel(g, w) <= RTOL[dtype]
+
+
 @pytest.mark.parametrize("d", [1, 20, 32, 48])
 def test_the_kernel_is_built_one_library_a_width(d):
     from amf_tpu_torch.ops import cuda_build
@@ -108,9 +133,9 @@ def test_the_kernel_is_built_one_library_a_width(d):
 
 @pytest.mark.parametrize("path", ["dense", "index"])
 def test_the_chain_span_names_its_gram_path(monkeypatch, path):
-    """``gibbs.chain`` carries ``gram_index`` and ``gram_nnz`` under
-    ``profiling.tracing()``; the index path (forced on the CPU, so the
-    plain version runs) sums the masked Gram once a half sweep."""
+    """``gibbs.chain`` carries ``gram_index`` under ``profiling.tracing()``;
+    the index path (forced on the CPU, so the plain version runs) sums the
+    masked Gram once a half sweep."""
     from amf_tpu_torch import types as ttypes
     from amf_tpu_torch.utils import profiling
 
@@ -132,7 +157,6 @@ def test_the_chain_span_names_its_gram_path(monkeypatch, path):
              if s.name == "gibbs.chain"]
     index = path == "index"
     assert sp.attrs["gram_index"] == int(index)
-    assert sp.attrs["gram_nnz"] == int(known.sum())
     assert tgk.masked_gram_plain.calls - calls == (3 * 2 * 2 if index else 0)
 
 

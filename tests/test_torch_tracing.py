@@ -196,8 +196,7 @@ def test_a_lookahead_tile_is_one_tree_of_spans():
         "lookahead.tile", "pmf.fit", "gibbs.chain")
     assert fit.parent == chain.parent == tile.id
     # the CPU keeps the dense product of the mask
-    assert chain.attrs == {"rounds": 3, "lanes": 15, "gram_index": 0,
-                           "gram_nnz": int(prob.rated.sum()), "b1_coop": 0}
+    assert chain.attrs == {"rounds": 3, "lanes": 15, "gram_index": 0}
     assert [s.name for s in noise] == ["gibbs.noise"] * 3
     assert {s.parent for s in noise} == {chain.id}
     assert {s.root for s in recs} == {tile.id}
