@@ -19,9 +19,11 @@ Layout on the card:
   * each row draw goes through the Cholesky solve-and-sample kernel
     (ops/chol_kernel.py), which reads those products and assembles S and
     the right-hand side itself;
-  * each lane draws the noise of a whole Gibbs round in one call on its own
-    generator (utils/rng.py), so launches grow with lanes x rounds and the
-    scores do not depend on how candidates are tiled.
+  * each lane draws the noise of a whole Gibbs round from its own
+    generator (utils/rng.py), so the scores do not depend on how candidates
+    are tiled; on the card every lane's draw of a round is one launch
+    (``utils/rng.LaneStreams``, ``ops/lane_noise``) that gives each lane its
+    generator's own numbers.
 
 Deliberate fix kept from the JAX package: the Gaussian-Wishart posterior
 scale uses the outer product of (mu0 - x_bar), where the reference's
@@ -31,7 +33,7 @@ scale uses the outer product of (mu0 - x_bar), where the reference's
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +45,7 @@ from amf_tpu_torch.types import LaneCells, Problem
 from amf_tpu_torch.utils.linalg import cholesky_or_nan as _cholesky
 from amf_tpu_torch.utils.linalg import inverse_or_nan as _inverse
 from amf_tpu_torch.utils.profiling import span
-from amf_tpu_torch.utils.rng import lane_gammas, lane_generators, lane_normals
+from amf_tpu_torch.utils.rng import LaneStreams, lane_generators
 
 
 class GibbsConfig(NamedTuple):
@@ -188,20 +190,21 @@ class RoundNoise(NamedTuple):
     z_v: torch.Tensor  # (num_gibbs, L, m, d)
 
 
-def draw_round_noise(generators: Sequence[torch.Generator], n: int, m: int,
+def draw_round_noise(streams: LaneStreams, n: int, m: int,
                      cfg: GibbsConfig, dtype, device) -> RoundNoise:
-    """One round's draws: one normal and one Gamma call per lane (the span
-    ``gibbs.noise``)."""
+    """One round's draws: of each lane's stream one normal and one Gamma
+    draw, for every lane in one launch on the card (the span
+    ``gibbs.noise``, whose ``batched`` is 1 there and 0 where the lanes'
+    draws are calls of their own)."""
     d, g = cfg.latent_d, cfg.num_gibbs
-    L = len(generators)
+    L = len(streams)
     sizes = [d * d, d, d * d, d, g * n * d, g * m * d]
-    with span("gibbs.noise"):
-        flat = lane_normals(generators, sum(sizes), dtype, device)
-        wu, mu_u, wv, mu_v, zu, zv = torch.split(flat, sizes, dim=1)
-        like = flat[:1, :1]
+    with span("gibbs.noise", batched=int(streams.batched)):
+        like = torch.empty((), dtype=dtype, device=device)
         shape = torch.cat([_dof_shape(d, d + n, like),
                            _dof_shape(d, d + m, like)])
-        gam = lane_gammas(generators, shape)
+        flat, gam = streams.draw(sum(sizes), dtype, shape)
+        wu, mu_u, wv, mu_v, zu, zv = torch.split(flat, sizes, dim=1)
     return RoundNoise(
         gamma_u=gam[:, :d], normal_wu=wu.reshape(L, d, d), normal_mu_u=mu_u,
         gamma_v=gam[:, d:], normal_wv=wv.reshape(L, d, d), normal_mu_v=mu_v,
@@ -311,22 +314,23 @@ def run_chain(
         ge = torch.zeros((L, n_cut, n, m), dtype=dtype, device=device)
         bins = torch.zeros((L, n_bins, n, m), dtype=dtype, device=device)
         samples = []
-        for _ in range(num_samps):
-            noise = draw_round_noise(generators, n, m, cfg, dtype, device)
-            chain = _gibbs_round(chain, sides, cfg, noise, cells, deltas)
-            pred = chain.U @ chain.V.mT
-            if cfg.subtract_mean:
-                pred.add_(chain.mean_rating[:, None, None])
-            s1 += pred
-            s2.addcmul_(pred, pred)
-            if n_cut:
-                ge += (pred[:, None] >= cut).to(dtype)
-            if n_bins:
-                p = pred[:, None]
-                bins += ((p >= lo) & (p < hi)).to(dtype)
-            if keep_samples:
-                samples.append((chain.U, chain.V))
-            del pred
+        with LaneStreams(generators, device) as streams:
+            for _ in range(num_samps):
+                noise = draw_round_noise(streams, n, m, cfg, dtype, device)
+                chain = _gibbs_round(chain, sides, cfg, noise, cells, deltas)
+                pred = chain.U @ chain.V.mT
+                if cfg.subtract_mean:
+                    pred.add_(chain.mean_rating[:, None, None])
+                s1 += pred
+                s2.addcmul_(pred, pred)
+                if n_cut:
+                    ge += (pred[:, None] >= cut).to(dtype)
+                if n_bins:
+                    p = pred[:, None]
+                    bins += ((p >= lo) & (p < hi)).to(dtype)
+                if keep_samples:
+                    samples.append((chain.U, chain.V))
+                del pred
 
         mean = s1.div_(num_samps)
         var = s2.div_(num_samps).sub_(mean * mean).clamp_(min=0.0)  # ddof=0

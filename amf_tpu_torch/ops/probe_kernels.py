@@ -36,6 +36,19 @@ them, and how close their launches come to their bounds.
    largest gap to the plain version (scaled by 1 + |x|), the plain
    version's time and the bound (bytes or operations, each input and
    output counted once).
+5. ``csrc/lane_noise.cu``, every lane's noise of a Gibbs round in one
+   launch (``--noise`` runs this section alone): ``ptxas -v`` and nvcc
+   seconds; at the two lookahead cells' rounds (160 lanes of 105,840
+   normals, 512 lanes of 15,880, each with 40 Gamma variates; d = 20,
+   float32 and float64): whether two rounds of the kernel's values equal
+   the per-lane calls' and leave the generators at the same offsets, its
+   profiled device time beside its byte bound (the normals and Gamma
+   variates written once, the seeds read), its CUDA-event and host time a
+   round, the same with the Gamma variates in a second launch, and the
+   per-lane calls' host time a round (``lane_noise_plain``); then one
+   DrugBank-shaped lookahead tile (512 lanes, 30 rounds) under tracing:
+   its ``gibbs.noise`` spans, how many were ``batched``, and N1's
+   launches.
 
 Prints one JSON line per result; needs a CUDA card and nvcc.
 """
@@ -482,6 +495,158 @@ def _chol_row(ck, args, want, row):
     return row
 
 
+# the lookahead cells' rounds: (lanes, n, m) at d = 20, two sweeps a round
+NOISE_CELLS = {"ml100k-bpmf-d20": (160, 943, 1682),
+               "db70x306-bpmf-d20": (512, 70, 306)}
+NOISE_D = 20
+NOISE_SEED = 1234567891011  # lane seeds are 64-bit mixes of it
+
+
+def _host_ms(fn, reps):
+    """Host milliseconds a call of ``fn``, each call ending on a
+    ``synchronize``, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def noise_cell_rows(dev, dtypes=(torch.float32, torch.float64), rounds=2):
+    """N1 at the two lookahead cells' rounds (d = 20), each dtype:
+    ``rounds`` draws through ``LaneStreams`` held with ``torch.equal`` to
+    the per-lane calls on fresh copies of the same generators, with the
+    generators' offsets after both and the kernel's launches; its
+    CUDA-event, profiled device and host times a round beside its byte
+    bound (the normals and Gamma variates written once, the seeds read),
+    the same with the Gamma variates in a second launch, and the per-lane
+    calls' times (also ``chip_smoke.py``'s phase 38 and N1 row)."""
+    from amf_tpu_torch.models import bpmf_gibbs
+    from amf_tpu_torch.ops import lane_noise
+    from amf_tpu_torch.utils.rng import LaneStreams, lane_generators
+
+    d, rows = NOISE_D, []
+    for cell, (L, n, m) in NOISE_CELLS.items():
+        size = 2 * d * d + 2 * d + 2 * (n + m) * d
+
+        def gens():
+            return lane_generators(NOISE_SEED, range(L // 2), 2, dev)
+
+        for dtype in dtypes:
+            like = torch.empty((), dtype=dtype, device=dev)
+            shape = torch.cat([bpmf_gibbs._dof_shape(d, d + n, like),
+                               bpmf_gibbs._dof_shape(d, d + m, like)])
+            kernel_gens, plain_gens = gens(), gens()
+            before = lane_noise.lane_noise_cuda.launches.copy()
+            with LaneStreams(kernel_gens, dev) as streams:
+                got = [streams.draw(size, dtype, shape)
+                       for _ in range(rounds)]
+            made = lane_noise.lane_noise_cuda.launches - before
+            want = [lane_noise.lane_noise_plain(plain_gens, size, dtype, dev,
+                                                shape) for _ in range(rounds)]
+            pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g, w)]
+            equal = all(torch.equal(a, b) for a, b in pairs)
+            max_abs_err = max((a - b).abs().max().item() for a, b in pairs)
+            offsets_equal = ([g.get_offset() for g in kernel_gens]
+                             == [g.get_offset() for g in plain_gens])
+            del got, want, pairs
+
+            streams, timing_gens = LaneStreams(gens(), dev), gens()
+
+            def one():
+                return streams.draw(size, dtype, shape)
+
+            def two():
+                return (streams.draw(size, dtype),
+                        streams.draw(0, dtype, shape))
+
+            def plain():
+                return lane_noise.lane_noise_plain(timing_gens, size, dtype,
+                                                   dev, shape)
+
+            n_bytes = (L * (size + 2 * d) + 2 * d) * like.element_size() \
+                + L * 8
+            bound_ms = n_bytes / 3.35e12 * 1e3
+            dev_ms = _device_ms_or_none(one, "lane_noise_kernel")
+            row = dict(
+                section="noise", cell=cell, dtype=str(dtype).split(".")[1],
+                L=L, size=size, k=2 * d, rounds=rounds, equal=equal,
+                offsets_equal=offsets_equal, max_abs_err=max_abs_err,
+                launches={"/".join(k): v for k, v in made.items()},
+                bound_ms=bound_ms, bound_by="bytes", device_ms=dev_ms,
+                bound_pct=100 * bound_ms / dev_ms if dev_ms else None,
+                ms=cuda_ms(one, 20), host_ms=_host_ms(one, 20),
+                two_launches_ms=cuda_ms(two, 20),
+                two_launches_host_ms=_host_ms(two, 20),
+                plain_host_ms=_host_ms(plain, 3), plain_ms=cuda_ms(plain, 3))
+            streams.close()
+            rows.append(row)
+            print("noise " + json.dumps(row), flush=True)
+    return rows
+
+
+def noise_section(dev):
+    """Section 5: N1's build, one Gibbs round's lane noise at the
+    lookahead cells' shapes in float32 and float64, one row a (cell,
+    dtype), and a traced lookahead tile."""
+    t0 = time.perf_counter()
+    cuda_build.build("lane_noise")
+    build_s = time.perf_counter() - t0
+    ptx = ptxas("lane_noise")
+    rows = [dict(section="noise_ptxas", build_s=round(build_s, 1), kernels=[
+        (r["kernel"][-48:], r["registers"], r["spill_stores"],
+         r["spill_loads"]) for r in ptx])]
+    print("noise " + json.dumps(rows[-1]), flush=True)
+    rows += noise_cell_rows(dev)
+    rows.append(noise_tile_row(dev))
+    print("noise " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def noise_tile_row(dev, cand_n=256, d=NOISE_D, rounds=30):
+    """One exp-variance lookahead tile at the DrugBank cell's shape
+    (``cand_n`` candidates x 2 values on 70 x 306 +-1 labels, 400 known,
+    width d, ``rounds`` rounds) under ``profiling.tracing()``: how many
+    ``gibbs.noise`` spans it opened and how many said ``batched``, N1's
+    launches, and the per-lane calls the same rounds take without it."""
+    import numpy as np
+
+    from amf_tpu_torch import types
+    from amf_tpu_torch.models import bpmf_gibbs, pmf
+    from amf_tpu_torch.ops import lane_noise
+    from amf_tpu_torch.utils import profiling
+    from amf_tpu_torch.utils.rng import generator
+
+    n, m, vals = 70, 306, (-1.0, 1.0)
+    rng = np.random.default_rng(0)
+    real = np.where(rng.random((n, m)) < 0.1, 1.0, -1.0)
+    prob = types.problem_from_dense(real, rng.random((n, m)) < 400 / (n * m),
+                                    device=dev)
+    pcfg = pmf.PMFConfig(latent_d=d, subtract_mean=True)
+    gcfg = bpmf_gibbs.GibbsConfig(latent_d=d, subtract_mean=True)
+    pst, _ = pmf.fit(pmf.init_state(generator(1, dev), n, m, pcfg, prob,
+                                    device=dev), prob, pcfg)
+    _, stats, _ = bpmf_gibbs.run_chain(
+        bpmf_gibbs.init_chain(pst), prob, gcfg, 8, generator=generator(2, dev),
+        value_bounds=tuple(types.rating_bounds(vals)))
+    cand = torch.nonzero(prob.queryable.flatten())[:cand_n, 0]
+    launches = lane_noise.lane_noise_cuda.launches.copy()
+    profiling.spans(reset=True)
+    with profiling.tracing():
+        bpmf_gibbs.exp_variance_scores(3, pst, prob, pcfg, gcfg, stats, vals,
+                                       num_samps=rounds, cand=cand,
+                                       n_base_samples=8)
+    batched = [s.attrs["batched"] for s in profiling.spans(reset=True)
+               if s.name == "gibbs.noise"]
+    made = lane_noise.lane_noise_cuda.launches - launches
+    return dict(section="noise_tile", lanes=2 * len(cand), rounds=len(batched),
+                batched_rounds=sum(batched),
+                launches={"/".join(k): v for k, v in made.items()},
+                per_lane_calls_without=2 * 2 * len(cand) * len(batched))
+
+
 def ptxas_section(results):
     """Section 1 of the module docstring, into ``results``."""
     with ThreadPoolExecutor(6) as pool:
@@ -502,6 +667,9 @@ def main(argv=None) -> int:
                          "alone")
     ap.add_argument("--chol", action="store_true",
                     help="run section 4 (B1 at d = 10 to 48) alone")
+    ap.add_argument("--noise", action="store_true",
+                    help="run section 5 (the lane noise of a Gibbs round) "
+                         "alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -512,7 +680,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     results = dict(card=card, ptxas=[])
     dev = torch.device("cuda")
-    if args.chol:
+    if args.noise:
+        results["noise"] = noise_section(dev)
+    elif args.chol:
         results["chol_b1"] = chol_section(dev)
     elif args.gram:
         results["gram"] = gram_section(dev)
@@ -527,10 +697,11 @@ def main(argv=None) -> int:
                 print("ptxas " + json.dumps(results["ptxas"][-1]), flush=True)
     else:
         ptxas_section(results)
-    if not (args.gram or args.chol):
+    if not (args.gram or args.chol or args.noise):
         results["wide"] = wide_kernels(dev)
         results["gram"] = gram_section(dev)
         results["chol_b1"] = chol_section(dev)
+        results["noise"] = noise_section(dev)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

@@ -7,7 +7,8 @@ hand-written kernel of them against its plain PyTorch version on the card:
 
   * the Gibbs BPMF ``exp-variance`` one-step lookahead and its active loop
     (a 128-sample base chain, 30-sample lane chains, 32 candidates x 5
-    values = 160 lanes a tile), through the Cholesky solve-and-sample kernel;
+    values = 160 lanes a tile), through the Cholesky solve-and-sample kernel
+    and the lane-noise kernel (every lane's round noise in one launch);
   * the PMF-refit lookahead (``fit_lookahead_batch``, tiles of 128 lanes)
     and its ``add_rmse_boosts`` CLI, through the value+gradient kernel;
     its poly-LS epoch loop through the value+gradient and line-coefficient
@@ -220,6 +221,16 @@ Phases (each raises on failure):
      base chain, 120 a headline tile) and the plain version never, the
      refit row through the bf16 lane-blocked value+gradient kernel alone
      (one index build a refit tile).
+ 38. (run after phase 2, before 3) the lane-noise kernel, N1, against the
+     per-lane ``normal_`` and ``_standard_gamma`` calls it replaces, at
+     both lookahead cells' rounds (160 lanes of 105,840 normals and 512
+     of 15,880, each with 40 Gamma variates at the cell's Bartlett shapes;
+     f32 and f64): two rounds through ``LaneStreams`` against the per-lane
+     calls on fresh copies of the same generators, ``torch.equal`` on
+     every value and the generators' offsets after both, one launch a
+     round; its times beside the per-lane calls' and its byte bound
+     (``probe_kernels.noise_cell_rows``). Phase 4 counts N1's launches from
+     0: one a Gibbs round of its chains.
 Phases 31, 33 and 34 each run inside ``utils/profiling.device_trace`` (a
 Chrome trace of the card under build/chip_smoke_results/; phase 32 outside
 it, whose millions of launches take the profiler minutes to write), each
@@ -3058,6 +3069,7 @@ def main() -> int:
     from amf_tpu_torch.ops import chol_kernel as ck
     from amf_tpu_torch.ops import cuda_build
     from amf_tpu_torch.ops import gram_kernel as gk
+    from amf_tpu_torch.ops import lane_noise as ln
     from amf_tpu_torch.ops import pmf_kernels as pk
     from amf_tpu_torch.ops import probe_kernels
     from amf_tpu_torch.run import add_rmse_boosts
@@ -3076,13 +3088,16 @@ def main() -> int:
     # (source, width): every source at the main paths' d = 10 and at
     # d = 48, which is a library of its own; the fused line search also at
     # d = 32 (phase 11), the Cholesky kernel (one library a width) at the
-    # widths phase 2 holds to its plain version
+    # widths phase 2 holds to its plain version; the lane noise has no
+    # width (d None), one library
     widths = [(src, d) for src in ("chol_solve_sample", "masked_gram",
                                    "pmf_value_grad", "pmf_line_coeffs",
                                    "pmf_lookahead_fused")
               for d in (D, WIDE_D)] + [("pmf_lookahead_fused", 32)] + [
-                  ("chol_solve_sample", d) for d in (1, 5, 20, 32)]
-    libraries = [(src, cuda_build.width_defines(src, d)) for src, d in widths]
+                  ("chol_solve_sample", d) for d in (1, 5, 20, 32)] + [
+                  ("lane_noise", None)]
+    libraries = [(src, () if d is None else cuda_build.width_defines(src, d))
+                 for src, d in widths]
 
     def build_s(lib):
         start = time.perf_counter()
@@ -3096,12 +3111,14 @@ def main() -> int:
             ck._entry_points(d)
         elif src == "masked_gram":
             gk._entry_points(d)
+        elif src == "lane_noise":
+            ln._entry_points()
         else:
             pk._entry_point(*lib)
     # a CLI run pays a library's seconds at its first use of a source, and
     # of a new -D where that is a library of its own
-    build_s_by_lib = {f"{src} d={d}" + (f" {' '.join(lib[1])}" if lib[1]
-                                        else ""): t
+    build_s_by_lib = {(src if d is None else f"{src} d={d}")
+                      + (f" {' '.join(lib[1])}" if lib[1] else ""): t
                       for (src, d), lib, t in zip(widths, libraries, each)}
     print(f"kernel build+load s {time.perf_counter() - t0:.1f} (each nvcc, "
           f"side by side: {json.dumps(build_s_by_lib)})", flush=True)
@@ -3136,6 +3153,18 @@ def main() -> int:
               f"the index Gram kernel disagrees with its plain version: {r}")
     gram_index_row = next(r for r in gram_index if r["cell"] == "bench"
                           and r["side"] == "V" and r["dtype"] == "float32")
+
+    stamp("38")
+    # ---- 38. the lane noise (N1) against the per-lane calls it replaces,
+    # at both lookahead cells' rounds, f32 and f64: two rounds' values bit
+    # for bit, the generators' offsets after them, one launch a round
+    noise = probe_kernels.noise_cell_rows(device)
+    for r in noise:
+        check(r["equal"] and r["offsets_equal"] and r["launches"] == {
+            f"normal+gamma/torch.{r['dtype']}": r["rounds"]},
+              f"the lane-noise kernel is not the per-lane calls: {r}")
+    noise_row = next(r for r in noise if r["cell"] == "db70x306-bpmf-d20"
+                     and r["dtype"] == "float32")
 
     stamp("3")
     # ---- 3. the f32 lookahead tile at the bench shape: the bench's
@@ -3212,6 +3241,7 @@ def main() -> int:
                                          dtype=torch.float32, device=device)
     before = ck.chol_gram_solve_sample_cuda.launches
     index_before = gk.masked_gram_cuda.launches
+    ln.lane_noise_cuda.launches.clear()
     t0 = time.perf_counter()
     res = run_active_gibbs(
         prob_pool, real, ["exp-variance"], latent_d=D, rating_values=VALS,
@@ -3223,10 +3253,17 @@ def main() -> int:
     loop_launches = ck.chol_gram_solve_sample_cuda.launches - before
     main_launches = ck.chol_gram_solve_sample_cuda.launches
     index_launches = gk.masked_gram_cuda.launches - index_before
+    noise_launches = dict(ln.lane_noise_cuda.launches)
     # the problem's 0.3 % density takes the index Gram: one launch a draw
     check(index_launches == loop_launches,
           f"the active loop's {loop_launches} row draws launched the index "
           f"Gram {index_launches} times")
+    # a Gibbs round: one lane-noise launch, then a U and a V draw a sweep
+    a_round = 2 * gcfg.num_gibbs
+    check(loop_launches % a_round == 0 and noise_launches == {
+        ("normal+gamma", "torch.float32"): loop_launches // a_round},
+          f"the active loop's {loop_launches // a_round} Gibbs rounds "
+          f"launched the lane noise {noise_launches}")
     plain_calls = ck.chol_solve_sample_reference.calls
     recs = res["exp-variance"]
     picks = [r[2] for r in recs[1:]]
@@ -3242,7 +3279,8 @@ def main() -> int:
         phase="active_loop_f32", records=len(recs), picks=picks,
         rmse=[r[1] for r in recs], loop_s=loop_s,
         s_per_scored_step_upper=loop_s / (LOOP_STEPS - 1),
-        kernel_launches=loop_launches)), flush=True)
+        kernel_launches=loop_launches,
+        lane_noise_launches=sum(noise_launches.values()))), flush=True)
 
     stamp("5")
     # ---- 5. the same tile in f64, through the kernel and the plain version
@@ -4006,6 +4044,23 @@ def main() -> int:
                                           "plain_ms", "bound_ms",
                                           "library_ms")},
         "bound_by": "bytes"},
+    {
+        # no Pallas kernel: the JAX package draws a round's noise from each
+        # lane's key inside its jitted round, and the port's per-lane calls
+        # (normal_, _standard_gamma) are its plain version; launches over
+        # phase 4's loop (one a Gibbs round), times at the DrugBank
+        # lookahead cell's round (512 lanes, f32), every round of phase 38
+        # equal bit for bit
+        "name": "lane_noise (every lane's Gibbs round noise)",
+        "route": "cuda", "source": "amf_tpu_torch/csrc/lane_noise.cu",
+        "replaces": None, "launches": sum(noise_launches.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in noise),
+        **{k: noise_row[k] for k in ("L", "size", "k", "ms", "device_ms",
+                                     "host_ms", "plain_ms", "plain_host_ms",
+                                     "bound_ms", "bound_by")},
+        "rounds": {f"{r['cell']} {r['dtype']}": {
+            k: r[k] for k in ("L", "ms", "plain_ms", "bound_ms")}
+            for r in noise}},
         vg_entry("L,rows,d", "float32", b4,
                  cli_launches[("L,rows,d", "torch.float32")]),
         vg_entry("L,d,rows", "float32", b2,

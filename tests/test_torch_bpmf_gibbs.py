@@ -26,7 +26,7 @@ from amf_tpu_torch.models import pmf as tpmf
 from amf_tpu_torch.ops import gram_kernel
 from amf_tpu_torch.ops.pmf_kernels import rated_index
 from amf_tpu_torch.ops.quadrature import normal_trapezoid_grid
-from amf_tpu_torch.utils.rng import generator, lane_generators
+from amf_tpu_torch.utils.rng import LaneStreams, generator, lane_generators
 
 F64 = jnp.float64
 RTOL = 1e-10
@@ -254,7 +254,8 @@ def test_sample_rows_takes_strided_noise_and_expanded_factors(case):
     tprob, tst = case["tprob"], case["tst"]
     cfg = tbg.GibbsConfig(latent_d=2)
     gens = lane_generators(3, [0, 1, 2], 1, "cpu")
-    noise = tbg.draw_round_noise(gens, 6, 5, cfg, torch.float64, "cpu")
+    noise = tbg.draw_round_noise(LaneStreams(gens, "cpu"), 6, 5, cfg,
+                                 torch.float64, "cpu")
     z = noise.z_u[1]
     assert not z.is_contiguous()
     other = tst.V.expand(3, 5, 2)

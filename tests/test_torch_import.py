@@ -18,7 +18,7 @@ SLICE = [
     "amf_tpu_torch.data.synthetic", "amf_tpu_torch.data.loaders",
     "amf_tpu_torch.analysis.metrics", "amf_tpu_torch.ops.linesearch",
     "amf_tpu_torch.ops.chol_kernel", "amf_tpu_torch.ops.cuda_build",
-    "amf_tpu_torch.ops.gram_kernel",
+    "amf_tpu_torch.ops.gram_kernel", "amf_tpu_torch.ops.lane_noise",
     "amf_tpu_torch.ops.quadrature", "amf_tpu_torch.models.pmf",
     "amf_tpu_torch.models.bpmf_gibbs", "amf_tpu_torch.active.driver",
     "amf_tpu_torch.active.gibbs_loop", "amf_tpu_torch.run.bayes_pmf",
